@@ -9,8 +9,10 @@ config under ``config/`` loads to the same values in both packages.
 Differences: ``setting.device`` is mapped to a torch device (``tpu``,
 ``cuda`` and ``gpu`` -> ``cuda``; ``cpu`` -> ``cpu``).  The optional ``tpu:``
 section is accepted with the same unknown-key check; of its knobs the port
-reads ``feature_update`` and ``fuse_update_levels`` (the rest belong to
-paths not ported yet and are loaded but unused).
+reads ``feature_update``, ``fuse_update_levels`` and ``sort_batch``
+(``TrainSettings.from_config``).  The bf16 map mode's knobs are arguments
+of the training API (see the comment on the section below); the rest
+belong to paths not ported yet and are loaded but unused.
 """
 
 from __future__ import annotations
@@ -184,11 +186,18 @@ class SHINEConfig:
     # ------------------------------------------------------------------ "tpu:" section
     # Knobs of the JAX package's device paths, loaded with the same names and
     # defaults so both packages read a YAML to equal fields (meanings:
-    # shine_mapping_tpu/config.py).  This slice of the port reads only
+    # shine_mapping_tpu/config.py).  TrainSettings.from_config reads
     # feature_update ("fused" | "pallas": both run the dense Adam step of
-    # ops/adam_kernel.py on the feature tables) and fuse_update_levels (one
-    # kernel launch over all levels instead of one per level), plus the
-    # initial hash-table capacities.
+    # ops/adam_kernel.py on the feature tables), fuse_update_levels (one
+    # kernel launch over all levels instead of one per level) and
+    # sort_batch.  The bf16 map mode's knobs select train.trainer arguments,
+    # which the batch CLI (not ported yet) will set from them:
+    # precompute_lookups -> precompute_pool_lookups, batch_windows /
+    # windows_fused -> precompute_batch_windows(fused=...), moments_bf16 ->
+    # init_opt_state(moments_bf16=...), params_bf16 ->
+    # HashGridHost.cast_features(bfloat16).  windows_split_k selects nothing
+    # on the card: on the TPU it only reorders the samples inside a window
+    # for the gathers.
     scan_chunk: int = 100
     init_node_capacity: int = 1 << 15
     init_corner_capacity: int = 1 << 16

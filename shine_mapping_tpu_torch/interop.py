@@ -8,7 +8,11 @@ functions take that structure as numpy arrays (``jax.device_get`` of it)
 and build the port's (``train.trainer.init_params`` layout and
 ``train.optimizer.OptState``), or the inverse.  JAX's ``w{i}`` is
 ``(in, out)``; ``nn.Linear.weight`` is ``(out, in)``: weights are transposed.
-Imports numpy and torch only.
+
+Feature tables and their moments keep their dtype: float32, or bfloat16 (the
+bf16 map mode), which numpy holds as ``ml_dtypes.bfloat16`` on the JAX side.
+Those cross through a 16-bit integer view, so no value is rounded either way.
+Imports numpy and torch only (``ml_dtypes`` where a bf16 table goes to JAX).
 """
 
 from __future__ import annotations
@@ -31,6 +35,25 @@ def _torch_name(jax_leaf: str):
         return _LEAVES[jax_leaf]
     kind, i = jax_leaf[0], int(jax_leaf[1:])
     return (f"layers.{i}.weight", True) if kind == "w" else (f"layers.{i}.bias", False)
+
+
+def _table_from_numpy(a, device) -> torch.Tensor:
+    """A float32 or ``ml_dtypes.bfloat16`` table -> a torch tensor of the same
+    dtype and bits (a copy)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(a.astype(np.float32), device=device)
+
+
+def _table_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`_table_from_numpy`."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy()
 
 
 def _decoder_state(jax_dec: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -73,8 +96,7 @@ def params_from_jax(jax_params: Dict[str, Any], device="cuda") -> Dict[str, Any]
     return {
         "geo": decoder_from_jax(jax_params["geo"], device),
         "sem": decoder_from_jax(jax_params["sem"], device),
-        FEATURES: [torch.tensor(np.asarray(f, np.float32), device=device)
-                   for f in jax_params[FEATURES]],
+        FEATURES: [_table_from_numpy(f, device) for f in jax_params[FEATURES]],
         "sigma": torch.tensor(np.asarray(jax_params["sigma"], np.float32),
                               device=device),
     }
@@ -91,8 +113,7 @@ def opt_state_from_jax(jax_opt, params: Dict[str, Any]) -> OptState:
             for name, t in _decoder_state(tree[grp]).items():
                 flat[f"{grp}.{name}"] = t.to(device)
         flat["sigma"] = torch.tensor(np.asarray(tree["sigma"], np.float32), device=device)
-        flat[FEATURES] = [torch.tensor(np.asarray(f, np.float32), device=device)
-                          for f in tree[FEATURES]]
+        flat[FEATURES] = [_table_from_numpy(f, device) for f in tree[FEATURES]]
         missing = set(dense_params(params)) - set(flat)
         if missing:
             raise KeyError(f"moments missing for {sorted(missing)}")
@@ -107,7 +128,7 @@ def params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
     return {
         "geo": _jax_decoder(params["geo"].state_dict()),
         "sem": _jax_decoder(params["sem"].state_dict()),
-        FEATURES: tuple(f.detach().cpu().numpy() for f in params[FEATURES]),
+        FEATURES: tuple(_table_to_numpy(f) for f in params[FEATURES]),
         "sigma": params["sigma"].detach().cpu().numpy(),
     }
 
@@ -122,7 +143,7 @@ def opt_state_to_jax(opt: OptState) -> Dict[str, Any]:
             out[grp] = _jax_decoder({k.split(".", 1)[1]: t for k, t in flat.items()
                                      if k.startswith(grp + ".")})
         out["sigma"] = flat["sigma"].detach().cpu().numpy()
-        out[FEATURES] = tuple(f.detach().cpu().numpy() for f in flat[FEATURES])
+        out[FEATURES] = tuple(_table_to_numpy(f) for f in flat[FEATURES])
         return out
 
     return {"m": tree(opt.m), "v": tree(opt.v), "step": int(opt.step)}

@@ -298,6 +298,8 @@ class HashGridHost:
         self.polynomial_interpolation = polynomial_interpolation
         self.leaf_vox_size = leaf_vox_size
         self.device = torch.device(device)
+        # float32, or bfloat16 after cast_features (the bf16 map mode)
+        self.feature_dtype = torch.float32
         self.rng = np.random.default_rng(seed)
 
         # bottom-up: index 0 = finest level (max_level)
@@ -323,14 +325,25 @@ class HashGridHost:
             self._zeros(hl.corner_capacity) for hl in self.host_levels
         ]
 
-    def _zeros(self, rows: int) -> torch.Tensor:
-        return torch.zeros((rows, self.feature_dim), dtype=torch.float32,
-                           device=self.device)
+    def _zeros(self, rows: int, dtype=torch.float32) -> torch.Tensor:
+        return torch.zeros((rows, self.feature_dim), dtype=dtype, device=self.device)
 
     # ---------------------------------------------------------------- properties
     @property
     def corner_counts(self) -> List[int]:
         return [hl.n_corners for hl in self.host_levels]
+
+    def cast_features(self, dtype: torch.dtype) -> None:
+        """Hold the feature tables in ``dtype`` (float32 or bfloat16) from now
+        on: the bf16 map mode's tables, cast as the JAX batch driver casts
+        them (shine_batch.py:245-248; to bf16 rounds to nearest even).
+        Growth then writes its float32 initial rows rounded the same way.
+        Replaces ``self.features``: take the trained parameters from it
+        afterwards (``trainer.init_params``)."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"feature tables are float32 or bfloat16, not {dtype}")
+        self.feature_dtype = dtype
+        self.features = [f.to(dtype) for f in self.features]
 
     # ---------------------------------------------------------------- growth
     def update(self, surface_points: np.ndarray, incremental_on: bool = False) -> None:
@@ -431,7 +444,7 @@ class HashGridHost:
                 self.features[li].index_copy_(
                     0,
                     torch.from_numpy(new_rows.astype(np.int64)).to(self.device),
-                    torch.from_numpy(init).to(self.device),
+                    torch.from_numpy(init).to(self.device, self.feature_dtype),
                 )
 
     def _grow_feature_tables(self, li: int) -> None:
@@ -440,7 +453,7 @@ class HashGridHost:
         C = hl.corner_capacity
 
         def pad(a: torch.Tensor) -> torch.Tensor:
-            out = self._zeros(C)
+            out = self._zeros(C, a.dtype)
             out[: a.shape[0]] = a
             return out
 
@@ -466,7 +479,8 @@ class HashGridHost:
             d[f"lvl{i}_node_coords"] = hl.node_coords
             d[f"lvl{i}_node_corner_rows"] = hl.node_corner_rows
             d[f"lvl{i}_n_corners"] = hl.n_corners
-            d[f"lvl{i}_features"] = self.features[i].detach().cpu().numpy()
+            # bf16 tables as their exact float32 upcast
+            d[f"lvl{i}_features"] = self.features[i].detach().float().cpu().numpy()
             d[f"lvl{i}_importance"] = (
                 self.importance_weight[i].detach().cpu().numpy())
         return d

@@ -54,7 +54,8 @@ def query_feature_with_aux(
         corners, found = lookup_level(tables[i], coords, level)
         w = corner_weights(coords, level, poly_on)  # (N, 8)
         w = torch.where(found[:, None], w, torch.zeros_like(w))
-        gathered = features[i][corners.long()]  # (N, 8, D)
+        # bf16 tables: the rows widen (exactly) to f32 before interpolation
+        gathered = features[i][corners.long()].float()  # (N, 8, D)
         contrib = torch.einsum("nc,ncd->nd", w.to(gathered.dtype), gathered)
         feat = contrib if feat is None else feat + contrib
         corners_per_level.append(corners)

@@ -47,12 +47,16 @@ def dense_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def init_opt_state(params: Dict[str, Any]) -> OptState:
-    """Zero Adam state (f32 moments; bf16 moments are ROADMAP Queue A item 12)."""
+def init_opt_state(params: Dict[str, Any], moments_bf16: bool = False) -> OptState:
+    """Zero Adam state.  The feature tables' moments are float32, or bfloat16
+    with ``moments_bf16`` (``tpu.moments_bf16``: the update computes in f32
+    and stores them rounded to nearest even); the decoders' and sigma's
+    moments stay float32, as in the JAX package."""
     m = {k: torch.zeros_like(p) for k, p in dense_params(params).items()}
     v = {k: torch.zeros_like(p) for k, p in dense_params(params).items()}
-    m[FEATURES] = [torch.zeros_like(f) for f in params[FEATURES]]
-    v[FEATURES] = [torch.zeros_like(f) for f in params[FEATURES]]
+    dtype = torch.bfloat16 if moments_bf16 else torch.float32
+    m[FEATURES] = [torch.zeros(f.shape, dtype=dtype, device=f.device) for f in params[FEATURES]]
+    v[FEATURES] = [torch.zeros(f.shape, dtype=dtype, device=f.device) for f in params[FEATURES]]
     return OptState(m=m, v=v, step=0)
 
 

@@ -1,26 +1,39 @@
 """Training loop: sample batch -> query grid -> MLP -> losses -> Adam.
 
 Port of the main path of ``shine_mapping_tpu/train/trainer.py``:
-``train_chunk`` with ``feature_update`` ``fused`` or ``pallas``, iid batch
-sampling from a device pool and live hash lookups, which is
-``body_fused`` (trainer.py:1106) of the JAX package.  One step:
+``train_chunk`` with ``feature_update`` ``fused`` or ``pallas``, which is
+``body_fused`` (trainer.py:1106) and, with fused epoch windows,
+``body_winx`` (:1391) of the JAX package.  One step:
 
-1. draw ``bs`` pool indices and gather the batch;
-2. per level, look up the containing node (``hashgrid.lookup_level``) and
-   gather its 8 corner rows ``G_i`` (misses -> the trashbin row);
+1. take ``bs`` pool indices — iid draws, or epoch window ``(start_iter + t)
+   % W`` (:func:`precompute_batch_windows`) — and gather the batch;
+2. per level, the 8 corner rows of the containing node: a hash lookup
+   (``hashgrid.lookup_level``), or a gather from lookups resolved once per
+   pool (:func:`precompute_pool_lookups`); misses -> the trashbin row; then
+   gather the rows ``G_i`` (widened to float32 from bf16 tables);
 3. interpolate and decode (``_feat_from_rows``, ``decoder.sdf``), take the
    loss (``_compute_loss_sparse``; the eikonal term differentiates the field
    w.r.t. the points, so the backward is second order);
 4. Adam on the decoders (``optimizer.adam_update``);
 5. the dense Adam step on the feature tables through the fused kernel
-   (``ops/adam_kernel.py``), fed with the gathered rows' gradients.
+   (``ops/adam_kernel.py``), fed with the gathered rows' gradients: one
+   launch per level (K1) or one over all levels (K2), with the row prep of
+   a window precomputed.
 
 JAX runs a chunk as one jitted ``lax.scan``; here it is a Python loop of
 eager torch ops that update the parameters and the optimizer state in
 place.  Both feature-update modes run the same reference dense Adam: on the
 card through the CUDA kernel, on the CPU through its plain twin.
 ``fuse_update_levels`` picks the kernel's multi-level entry point (one
-launch per step over all levels' tables) over the per-level one.
+launch per step over all levels' tables) over the per-level one on iid
+batches; with windows the window layout picks it.
+
+The bf16 map mode (the JAX package's production configuration:
+``tpu: {feature_update: pallas, moments_bf16: true, batch_windows: true,
+params_bf16: true}``) is pool lookups + fused windows + bf16 moments
+(``optimizer.init_opt_state(moments_bf16=True)``) + bf16 tables
+(``HashGridHost.cast_features``), whose update writes the parameters back
+with stochastic rounding seeded by the step's iteration.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import torch
 
 from ..models.decoder import Decoder
 from ..ops import adam_kernel
+from ..ops.adam_kernel import EntryPrep
 from ..ops.hashgrid import LevelTable, lookup_level
 from ..ops.interp import corner_weights
 from . import losses
@@ -148,6 +162,43 @@ def used_rows_for(grid, granularity: int = 16) -> Tuple[int, ...]:
     )
 
 
+def resolve_feature_update(settings: TrainSettings, fused_windows: bool = False) -> str:
+    """The feature update ``train_chunk`` runs for these settings: the JAX
+    package's ``_resolve_mode`` (trainer.py:650).  ``"pallas"`` is the kernel
+    update the bf16 modes and the windows need (``"fused"`` runs the same
+    kernel in the port, but the JAX package's gates name ``"pallas"``, and
+    the port raises where they do).  ``fused_windows``: fused epoch windows
+    will be supplied, the one layout on which the JAX package keeps the
+    kernel under continual-learning reg.  Unlike the JAX package, nothing
+    demotes a feature dim that does not pack into 128 lanes: the card's
+    kernel takes any D."""
+    s = settings
+    mode = s.feature_update if s.opt_adam else "dense"
+    if mode == "sparse" and s.consistency_loss_on:
+        mode = "dense"
+    if mode == "pallas" and s.continual_reg_on and not fused_windows:
+        mode = "fused"
+    if mode not in ("dense", "sparse", "fused", "pallas"):
+        raise ValueError(f"unknown feature_update {settings.feature_update!r}")
+    return mode
+
+
+def batch_windows_ok(settings: TrainSettings, feat_shapes, fused: bool) -> bool:
+    """Can epoch windows in the ``fused`` (one K2 launch per step) or
+    per-level (one K1 launch per level) layout run these settings?  The
+    JAX package's predicate (trainer.py:174) with the layout as an argument:
+    there it resolves as if fused windows were coming, so per-level windows
+    under continual-learning reg slip past it.  The fused layout also needs
+    one feature dim across levels, as the kernel's multi-level launch does.
+    Windows need ``pre_lookups`` besides: an argument, not a setting."""
+    s = settings
+    if fused and len({int(D) for _, D in feat_shapes}) != 1:
+        return False
+    return (resolve_feature_update(s, fused_windows=fused) == "pallas"
+            and not s.fuse_update_levels and not s.ray_loss
+            and not s.consistency_loss_on)
+
+
 def init_params(cfg, grid, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     """Canonical parameters: geo/sem decoders, the grid's feature tables (the
     same tensors, trained in place) and the dr-loss sigma."""
@@ -186,6 +237,135 @@ def pool_to_device(pool, capacity: int, device="cuda"):
         "weight": pad(pool.weight),
     }
     return dev, n
+
+
+@torch.no_grad()
+def precompute_pool_lookups(tables: Sequence[LevelTable], pool_coord: torch.Tensor,
+                            levels: Sequence[int], capacities: Sequence[int],
+                            chunk: int = 1 << 16):
+    """Corner rows and found masks of EVERY pool sample, per level: a tuple
+    of ``(corners (N, 8) int32, found (N,) bool)``, misses forced to the
+    trashbin row ``capacities[i] - 1`` (JAX ``precompute_pool_lookups``,
+    trainer.py:1706).  The hash structure is frozen while the map does not
+    grow and the pool does not change — a whole batch-mode run — so the
+    per-step probes become gathers (``train_chunk(..., pre_lookups=...)``).
+    The caller recomputes after growth or a new pool.  Probes ``chunk``
+    samples at a time to bound the probe window's memory."""
+    out = []
+    for table, level, C in zip(tables, levels, capacities):
+        cs, fs = [], []
+        for a in range(0, pool_coord.shape[0], chunk):
+            c, f = lookup_level(table, pool_coord[a:a + chunk], level)
+            cs.append(torch.where(f[:, None], c, int(C) - 1))
+            fs.append(f)
+        out.append((torch.cat(cs), torch.cat(fs)))
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class BatchWindows:
+    """Epoch windows with the update's row prep (:func:`precompute_batch_windows`).
+
+    ``idx`` (W, bs) int64 pool indices of each window; ``fused``: the
+    layout (one K2 launch per step over all levels, or one K1 launch per
+    level); ``preps``: for ``fused`` one stacked :class:`EntryPrep` over all
+    levels, else one per level (``adam_kernel.window_prep`` takes window
+    w's)."""
+
+    idx: torch.Tensor
+    fused: bool
+    preps: List[EntryPrep]
+
+    @property
+    def n_windows(self) -> int:
+        return int(self.idx.shape[0])
+
+    @property
+    def built_for(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """(table rows, used heads) per level that the preps were built for."""
+        return (sum((p.sizes for p in self.preps), ()),
+                sum((p.n_used for p in self.preps), ()))
+
+
+@torch.no_grad()
+def precompute_batch_windows(pre_lookups, n_valid: int,
+                             generator: Optional[torch.Generator],
+                             settings: TrainSettings, feat_shapes, fused: bool = True,
+                             window_indices: Optional[torch.Tensor] = None) -> BatchWindows:
+    """Epoch-style batch windows, with the update's row prep computed once
+    per window (JAX ``precompute_batch_windows``, trainer.py:1751, whose
+    window membership ``precompute_batch_windows_fused`` shares).
+
+    One permutation of the ``n_valid`` pool samples (``torch.randperm`` with
+    ``generator``) is cut into W = ceil(n_valid / bs) windows; the tail
+    wraps to the start of the permutation, so every sample trains each
+    epoch.  Window indices are sorted when ``settings.sort_batch`` is set.
+    ``train_chunk`` trains iteration ``t`` on window ``(start_iter + t) % W``.
+    ``window_indices`` (W, bs) replaces the permutation with given windows —
+    a test seam that lets a test hand across the JAX package's.
+
+    ``fused`` picks the layout (``tpu.windows_fused``): one
+    ``fused_adam_multi`` launch per step over all levels, with one
+    :class:`EntryPrep` per window, or per-level ``fused_adam`` launches with
+    one per level and window.  Both hold the same windows.  (The TPU's
+    split-K layout, ``tpu.windows_split_k``, only reorders the samples
+    inside a window for the TPU's gathers; it selects nothing here.)
+
+    Raises ValueError before any training when the settings cannot run
+    windows (:func:`batch_windows_ok`) or when an entry of some window lies
+    past ``settings.n_used`` (a stale hint: recompute ``used_rows_for``).
+    Device memory: :func:`estimate_windows_bytes`.  The caller recomputes
+    the windows with ``pre_lookups``."""
+    s = settings
+    if not batch_windows_ok(s, feat_shapes, fused):
+        raise ValueError(
+            "batch_windows require the pallas update (feature_update: pallas, no "
+            "fuse_update_levels), a point-mode loss without consistency or ray "
+            "loss, no continual reg on the per-level layout, and for the fused "
+            "layout one feature dim")
+    sizes = [int(C) for C, _ in feat_shapes]
+    n_used = list(s.n_used) if s.n_used is not None else sizes
+    device = pre_lookups[0][0].device
+    n_valid = int(n_valid)
+    if window_indices is None:
+        W = max(-(n_valid // -s.bs), 1)
+        perm = torch.randperm(n_valid, generator=generator, device=device)
+        perm = perm.repeat(-(W * s.bs // -n_valid))[: W * s.bs]
+        idx = perm.reshape(W, s.bs)
+    else:
+        idx = window_indices.to(device=device, dtype=torch.int64)
+        if idx.dim() != 2 or idx.shape[1] != s.bs:
+            raise ValueError(f"window_indices must be (W, {s.bs})")
+        if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < n_valid):
+            raise ValueError(f"window_indices must lie in [0, {n_valid})")
+    if s.sort_batch:
+        idx = torch.sort(idx, dim=1).values
+    rows = [pre_lookups[i][0][idx] for i in range(len(sizes))]  # (W, bs, 8)
+    if fused:
+        preps = [adam_kernel.entry_prep_stack(rows, sizes, n_used)]
+    else:
+        preps = [adam_kernel.entry_prep_stack([r], [C], [nu])
+                 for r, C, nu in zip(rows, sizes, n_used)]
+    dropped = sum(p.dropped for p in preps)
+    bad = torch.nonzero(dropped).reshape(-1)
+    if bad.numel():
+        raise ValueError(
+            f"{int(dropped.sum())} entries of windows {bad[:8].tolist()} lie past "
+            f"the n_used heads {tuple(n_used)}: the hint is stale (recompute "
+            "used_rows_for); nothing was trained")
+    return BatchWindows(idx=idx, fused=fused, preps=preps)
+
+
+def estimate_windows_bytes(n_valid: int, settings: TrainSettings) -> int:
+    """Device bytes :func:`precompute_batch_windows` holds for a run (JAX
+    ``estimate_windows_bytes``, trainer.py:1807, on the port's layout): per
+    window the int64 indices and, per entry (bs x 8 corners x L levels),
+    an int32 sorted row and an int32 order, plus an int64 dropped count per
+    window and prep.  Both layouts hold the same entries."""
+    s = settings
+    W = max(-(int(n_valid) // -s.bs), 1)
+    L = len(s.levels)
+    return W * (8 * s.bs + 8 * s.bs * 8 * L + 8 * L)
 
 
 def _gather_batch(pool, idx):
@@ -249,23 +429,27 @@ def _compute_loss_sparse(geo: Decoder, G_list, batch, found, s: TrainSettings):
     return total, aux
 
 
+def _gather_rows(feats, corners):
+    """The gathered corner rows ``G_i`` (B, 8, D), widened to float32 (bf16
+    tables), as leaf tensors that collect d loss / d row."""
+    G = [f[c.long()].float() for f, c in zip(feats, corners)]
+    for g_i in G:
+        g_i.requires_grad_()
+    return G
+
+
 def _lookup_rows(tables, feats, coords, s: TrainSettings):
     """Per level: the containing node's corner rows (misses -> the trashbin
     row; a missed probe lands on an arbitrary slot whose rows may belong to
-    a real node), the found mask, and the gathered rows ``G_i`` (B, 8, D) as
-    leaf tensors that collect d loss / d row."""
-    corners, found, G = [], [], []
+    a real node), the found mask, and the gathered rows ``G_i``."""
+    corners, found = [], []
     with torch.no_grad():
         for i, level in enumerate(s.levels):
             c_i, f_i = lookup_level(tables[i], coords, level)
             trash = torch.full_like(c_i, feats[i].shape[0] - 1)
-            c_i = torch.where(f_i[:, None], c_i, trash)
-            corners.append(c_i)
+            corners.append(torch.where(f_i[:, None], c_i, trash))
             found.append(f_i)
-            G.append(feats[i][c_i.long()])
-    for g_i in G:
-        g_i.requires_grad_()
-    return corners, found, G
+    return corners, found, _gather_rows(feats, corners)
 
 
 def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, torch.Tensor]:
@@ -277,8 +461,7 @@ def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, 
     return {k: a.detach() for k, a in aux.items()}
 
 
-def _check_supported(s: TrainSettings, batch_sharding, pre_lookups,
-                     batch_windows) -> None:
+def _check_supported(s: TrainSettings, batch_sharding, batch_windows) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what this
     slice of the port does not run yet."""
     todo = []
@@ -293,14 +476,53 @@ def _check_supported(s: TrainSettings, batch_sharding, pre_lookups,
             todo.append(f"{flag} (Queue A item 15)")
     if s.continual_reg_on or s.freeze_decoder:
         todo.append("continual_reg_on / freeze_decoder (Queue A item 10)")
-    if s.sort_batch:
-        todo.append("sort_batch (Queue A item 15)")
-    if pre_lookups is not None or batch_windows is not None:
-        todo.append("pre_lookups / batch_windows (Queue A item 11)")
+    if s.sort_batch and batch_windows is None:
+        # windows sort their indices once, at precompute
+        todo.append("sort_batch on iid batches (Queue A item 15)")
     if batch_sharding is not None:
         todo.append("multi-GPU batch sharding (Queue A item 14)")
     if todo:
         raise NotImplementedError("not ported yet, see ROADMAP.md: " + "; ".join(todo))
+
+
+def _check_modes(s: TrainSettings, feats, m_feats, n_used, pre_lookups,
+                 batch_windows, batch_indices, sr_noise16, n_iters) -> None:
+    """The JAX package's gates (trainer.py:756-836): windows need their
+    prerequisites, bf16 moments the kernel update, bf16 tables fused
+    windows and bf16 moments.  Raises ValueError."""
+    shapes = [tuple(f.shape) for f in feats]
+    fused_windows = batch_windows is not None and batch_windows.fused
+    mode = resolve_feature_update(s, fused_windows)
+    if pre_lookups is not None and len(pre_lookups) != len(s.levels):
+        raise ValueError(f"pre_lookups must hold one (corners, found) per level, "
+                         f"got {len(pre_lookups)}")
+    if batch_windows is not None:
+        if pre_lookups is None or not batch_windows_ok(s, shapes, batch_windows.fused):
+            raise ValueError(
+                "batch_windows requires the pallas update (feature_update: pallas, "
+                "no fuse_update_levels), point-mode loss without consistency, and "
+                f"pre_lookups (mode: {mode})")
+        if batch_indices is not None:
+            raise ValueError("batch_indices and batch_windows both choose the batches")
+        built = batch_windows.built_for
+        if built != (tuple(sh[0] for sh in shapes), tuple(n_used)):
+            raise ValueError(f"batch_windows were built for (sizes, n_used) {built}, "
+                             f"the tables have {tuple(sh[0] for sh in shapes)}, "
+                             f"{tuple(n_used)}: recompute them")
+    moments_bf16 = m_feats[0].dtype == torch.bfloat16
+    if moments_bf16 and mode != "pallas":
+        raise ValueError("tpu.moments_bf16 requires feature_update: pallas "
+                         f"(resolved mode: {mode})")
+    if feats[0].dtype == torch.bfloat16 and not (fused_windows and moments_bf16):
+        # every other update would round to nearest and stall sub-quantum steps
+        raise ValueError("tpu.params_bf16 requires fused batch windows "
+                         "(batch_windows + windows_fused) and moments_bf16")
+    if sr_noise16 is not None:
+        if feats[0].dtype != torch.bfloat16:
+            raise ValueError("sr_noise16 feeds the stochastic rounding of bf16 tables")
+        total = sum(int(f.numel()) for f in feats)
+        if tuple(sr_noise16.shape) != (n_iters, total):
+            raise ValueError(f"sr_noise16 must be ({n_iters}, {total})")
 
 
 def train_chunk(
@@ -315,29 +537,47 @@ def train_chunk(
     n_iters: int,
     batch_sharding=None,
     pre_lookups=None,
-    batch_windows=None,
+    batch_windows: Optional[BatchWindows] = None,
     batch_indices: Optional[torch.Tensor] = None,
+    sr_noise16: Optional[torch.Tensor] = None,
 ):
     """Run ``n_iters`` optimization steps, updating ``params`` and
     ``opt_state`` in place.
 
     Batches are ``bs`` indices drawn uniformly from [0, n_valid) with
-    ``generator`` (a torch.Generator on the pool's device).
-    ``batch_indices`` (n_iters, bs) replaces that draw with given indices —
-    a test seam that lets a test feed the JAX package's draws.
+    ``generator`` (a torch.Generator on the pool's device), or, with
+    ``batch_windows`` (:func:`precompute_batch_windows`), window
+    ``(start_iter + t) % W`` at iteration ``t``, whose update row prep comes
+    precomputed; its layout picks the update (one ``fused_adam_multi`` or
+    per-level ``fused_adam``).  Windows need ``pre_lookups``
+    (:func:`precompute_pool_lookups` of the SAME tables and pool), which
+    also serve iid batches: the per-step hash probes become gathers.
+    ``batch_indices`` (n_iters, bs) replaces the iid draw with given indices
+    — a test seam that lets a test feed the JAX package's draws.
+
+    The table dtypes pick the bf16 modes: bf16 feature moments
+    (``init_opt_state(moments_bf16=True)``, gradient entries rounded to
+    bf16) need ``feature_update: pallas``; bf16 tables
+    (``HashGridHost.cast_features``) need fused windows and bf16 moments,
+    and take stochastic rounding seeded with ``start_iter + t``.
+    ``sr_noise16`` (n_iters, sum of the tables' elements) hands the plain
+    version (CPU tensors) each step's 16-bit rounding noise, the levels'
+    tables concatenated in row-major order — a test seam for the JAX
+    package's bits.
 
     Returns (params, opt_state, {"mean": aux means, "last": last aux}), the
     aux values 0-dim tensors on the device.
 
-    Raises ValueError at the end of the chunk if gradient entries fell past
-    the ``settings.n_used`` heads (a stale hint).  The steps have then
-    already been applied in place without those entries: the tables and
-    moments are not the reference's and should be discarded.
+    Raises ValueError at the end of the chunk if gradient entries of iid
+    batches fell past the ``settings.n_used`` heads (a stale hint; windows
+    check this before training).  The steps have then already been applied
+    in place without those entries: the tables and moments are not the
+    reference's and should be discarded.
     """
     s = settings
-    _check_supported(s, batch_sharding, pre_lookups, batch_windows)
-    if batch_indices is None and generator is None:
-        raise ValueError("pass a torch.Generator or batch_indices")
+    _check_supported(s, batch_sharding, batch_windows)
+    if batch_indices is None and generator is None and batch_windows is None:
+        raise ValueError("pass a torch.Generator, batch_indices or batch_windows")
     if batch_indices is not None and tuple(batch_indices.shape) != (n_iters, s.bs):
         raise ValueError(f"batch_indices must be ({n_iters}, {s.bs})")
     # the reference trains in full float32; TF32 would keep ~3 decimal digits
@@ -351,6 +591,10 @@ def train_chunk(
     v_feats = list(opt_state.v[FEATURES])
     device = feats[0].device
     n_used = list(s.n_used) if s.n_used is not None else [int(f.shape[0]) for f in feats]
+    _check_modes(s, feats, m_feats, n_used, pre_lookups, batch_windows, batch_indices,
+                 sr_noise16, n_iters)
+    grads_bf16 = m_feats[0].dtype == torch.bfloat16
+    params_bf16 = feats[0].dtype == torch.bfloat16
     lr_scale, wd = make_group_trees(params, s.lr_level_reduce_ratio, s.weight_decay)
     dense = dense_params(params)
     geo: Decoder = params["geo"]
@@ -358,34 +602,58 @@ def train_chunk(
     dropped = torch.zeros((), dtype=torch.int64, device=device)
     hist: List[Dict[str, torch.Tensor]] = []
     for it in range(n_iters):
-        if batch_indices is not None:
+        step = start_iter + it
+        if batch_windows is not None:
+            wsel = step % batch_windows.n_windows
+            idx = batch_windows.idx[wsel]
+        elif batch_indices is not None:
             idx = batch_indices[it].to(device=device, dtype=torch.int64)
         else:
             idx = torch.randint(0, int(n_valid), (s.bs,), generator=generator,
                                 device=device)
         batch = _gather_batch(pool, idx)
-        corners, found, G = _lookup_rows(tables, feats, batch["coord"], s)
+        if pre_lookups is not None:
+            corners = [pre_lookups[i][0][idx] for i in range(len(s.levels))]
+            found = [pre_lookups[i][1][idx] for i in range(len(s.levels))]
+            G = _gather_rows(feats, corners)
+        else:
+            corners, found, G = _lookup_rows(tables, feats, batch["coord"], s)
         for p in dense.values():
             p.grad = None
 
         total, aux = _compute_loss_sparse(geo, G, batch, found, s)
         total.backward()
 
-        lr = lr_at_step(s.lr, start_iter + it, s.lr_decay_step, s.lr_iters_reduce_ratio)
+        lr = lr_at_step(s.lr, step, s.lr_decay_step, s.lr_iters_reduce_ratio)
         adam_update(dense, {k: p.grad for k, p in dense.items()}, opt_state, lr,
                     lr_scale, wd, b1=0.9, b2=0.99, eps=s.adam_eps)
         bc1, bc2 = bias_corrections(opt_state.step)
         grads = [g_i.grad for g_i in G]
-        if s.fuse_update_levels:
+        kw = dict(eps=s.adam_eps, grads_bf16=grads_bf16)
+        if batch_windows is not None and batch_windows.fused:
+            noise = None
+            if sr_noise16 is not None:
+                noise = torch.split(sr_noise16[it], [int(f.numel()) for f in feats])
+            adam_kernel.fused_adam_multi(
+                feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
+                lr_scale[FEATURES], n_used, sr_seed=step if params_bf16 else None,
+                pre=adam_kernel.window_prep(batch_windows.preps[0], wsel),
+                noise16=noise, **kw)
+        elif batch_windows is not None:
+            for i in range(len(s.levels)):
+                adam_kernel.fused_adam(
+                    feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
+                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i],
+                    pre=adam_kernel.window_prep(batch_windows.preps[i], wsel), **kw)
+        elif s.fuse_update_levels:
             dropped += adam_kernel.fused_adam_multi(
                 feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                lr_scale[FEATURES], n_used, eps=s.adam_eps)
+                lr_scale[FEATURES], n_used, **kw)
         else:
             for i in range(len(s.levels)):
                 dropped += adam_kernel.fused_adam(
                     feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
-                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i],
-                    eps=s.adam_eps)
+                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i], **kw)
         hist.append({k: a.detach() for k, a in aux.items()})
 
     n_dropped = int(dropped)

@@ -190,3 +190,273 @@ def test_used_rows_hint_matches_jax():
     n_corners, sizes = (0, 1, 3001, 4095, 2048), (4096, 4096, 4096, 4096, 2048)
     want = jak.used_rows_hint(n_corners, [(C, D) for C in sizes])
     assert tak.used_rows_hint(n_corners, sizes) == want
+
+
+# ------------------------------------------------------------------ bf16 modes
+#
+# bf16 moments (tpu.moments_bf16: bf16 m/v, gradient entries rounded to bf16)
+# and bf16 tables (tpu.params_bf16: stochastic rounding of the new p).  The
+# moments are compared bit for bit where the f32 values they round from
+# agree: at most 0.1% of them may land one bf16 ulp apart (an FMA or a sum
+# order moves an f32 value across a rounding tie).
+
+
+def _bf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _f32(a):
+    """A JAX / numpy / torch array as float32 numpy (bf16 widens exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _assert_bf16_equal_but_ties(a, b, share=0.999, err_msg=""):
+    a, b = _f32(a), _f32(b)
+    assert (a == b).mean() >= share, f"{err_msg}: only {(a == b).mean():.5f} bit-equal"
+    np.testing.assert_array_less(np.abs(a - b), 2.0 ** -7 * np.abs(b) + 1e-30,
+                                 err_msg=err_msg)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bf16_moments_single_level_matches_jax(interpret_pallas, use_pallas):
+    """K1's bf16-moment branch: the port's plain version against JAX
+    ``fused_adam_packed(grads_bf16=True)`` on bf16 m/v (the Pallas kernel in
+    interpret mode with gradients exact in bf16, or the XLA twin)."""
+    rng = np.random.default_rng(11)
+    C, M, n_used = 4096, 2048, 3000
+    p, m, v, rows, g = _level(rng, C, n_used, M, exact_grads=use_pallas)
+    m16, v16 = _bf16(m), _bf16(v)
+    want = jak.fused_adam_packed(
+        jnp.asarray(p.reshape(-1, 128)), m16.reshape(-1, 128), v16.reshape(-1, 128),
+        jnp.asarray(rows), jnp.asarray(_lanes(g, rows)), jnp.float32(LR),
+        jnp.float32(BC1), jnp.float32(BC2), C, D, use_pallas=use_pallas, lanes=True,
+        n_used=n_used, grads_bf16=True)
+    pt = torch.from_numpy(p.copy())
+    mt, vt = (torch.from_numpy(_f32(a)).bfloat16() for a in (m16, v16))
+    tak.fused_adam_plain(pt, mt, vt, torch.from_numpy(rows), torch.from_numpy(g),
+                         LR, BC1, BC2, n_used, grads_bf16=True)
+    assert mt.dtype == vt.dtype == torch.bfloat16
+    np.testing.assert_allclose(pt.numpy(), np.asarray(want[0]).reshape(C, D),
+                               atol=5e-6, rtol=0)
+    for name, a, b in (("m", mt, want[1]), ("v", vt, want[2])):
+        _assert_bf16_equal_but_ties(a, np.asarray(b).reshape(C, D), err_msg=name)
+    np.testing.assert_array_equal(pt.numpy()[n_used:], p[n_used:])
+
+
+def _multi_pre_inputs(rng, sizes, n_used, M_l, exact_grads):
+    """Per-level tables and entries, and the JAX package's concatenated
+    packed inputs of ``fused_adam_packed_multi_pre``: global packed rows,
+    lane-aligned gradients in entry order and its EntryPrep."""
+    from shine_mapping_tpu.ops.adam_kernel import _multi_geometry
+
+    shapes = tuple((C, D) for C in sizes)
+    levels = [_level(rng, C, nu, M_l, exact_grads) for C, nu in zip(sizes, n_used)]
+    _, _, roffs, *_ = _multi_geometry(shapes, M_l * len(sizes), n_used)
+    # trashbin entries (zero gradients) spread over each used head, as the
+    # JAX window precompute spreads its pad entries
+    prow = np.concatenate([
+        np.where(lv[3] == C - 1, np.arange(M_l) % ((nu * D + 127) // 128), lv[3] // PACK)
+        + int(roffs[i]) for i, (lv, C, nu) in enumerate(zip(levels, sizes, n_used))])
+    trash = np.concatenate([lv[3] == C - 1 for lv, C in zip(levels, sizes)])
+    g128 = np.concatenate([_lanes(lv[4], lv[3]) for lv in levels])
+    pre = jak.entry_prep_multi(jnp.asarray(prow), jnp.asarray(trash), shapes, n_used)
+    return shapes, levels, jnp.asarray(prow), jnp.asarray(g128), pre
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bf16_moments_multi_pre_matches_jax(interpret_pallas, use_pallas):
+    """K2's bf16-moment branch against JAX ``fused_adam_packed_multi_pre``
+    (the epoch-window caller) with ``grads_bf16``, per-level lr scales."""
+    rng = np.random.default_rng(12)
+    sizes, n_used, lr_scales = (4096, 2048), (3000, 1500), (1.0, 0.5)
+    shapes, levels, prow, g128, pre = _multi_pre_inputs(rng, sizes, n_used, 1024,
+                                                        use_pallas)
+    if use_pallas:
+        assert bool(pre.ok)
+    p = np.concatenate([lv[0] for lv in levels])
+    m16 = _bf16(np.concatenate([lv[1] for lv in levels]))
+    v16 = _bf16(np.concatenate([lv[2] for lv in levels]))
+    want = jak.fused_adam_packed_multi_pre(
+        jnp.asarray(p.reshape(-1, 128)), m16.reshape(-1, 128), v16.reshape(-1, 128),
+        g128, prow, pre, jnp.float32(LR), jnp.float32(BC1), jnp.float32(BC2),
+        shapes, lr_scales, use_pallas=use_pallas, n_used=n_used, grads_bf16=True)
+    ps = [torch.from_numpy(lv[0].copy()) for lv in levels]
+    ms = [torch.from_numpy(_f32(jnp.asarray(lv[1]).astype(jnp.bfloat16))).bfloat16()
+          for lv in levels]
+    vs = [torch.from_numpy(_f32(jnp.asarray(lv[2]).astype(jnp.bfloat16))).bfloat16()
+          for lv in levels]
+    tak.fused_adam_multi_plain(ps, ms, vs, _t(*[lv[3] for lv in levels]),
+                               _t(*[lv[4] for lv in levels]), LR, BC1, BC2, lr_scales,
+                               n_used, grads_bf16=True)
+    np.testing.assert_allclose(torch.cat(ps).numpy(), np.asarray(want[0]).reshape(-1, D),
+                               atol=5e-6, rtol=0)
+    for name, a, b in (("m", ms, want[1]), ("v", vs, want[2])):
+        _assert_bf16_equal_but_ties(torch.cat(a), np.asarray(b, np.float32).reshape(-1, D),
+                                    err_msg=name)
+
+
+def _jax_noise(seed, shape):
+    """The 16-bit noise JAX ``sr_round_bf16`` draws for ``seed``."""
+    import jax
+
+    return np.asarray(jax.random.bits(jax.random.PRNGKey(seed), shape, jnp.uint32)
+                      & jnp.uint32(0xFFFF)).astype(np.int32)
+
+
+def test_sr_round_bf16_plain_is_bit_exact_to_jax():
+    """Same 16 noise bits -> the same bf16 bits: carries into the exponent
+    (and up to infinity), negatives, subnormals, exact bf16 values, and
+    non-finite values passed through."""
+    rng = np.random.default_rng(13)
+    bits = np.concatenate([
+        rng.integers(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32),
+        np.array([0x3F7FFFFF, 0x3F7F8000, 0xBF7FFFFF, 0x7F7FFFFF, 0xFF7FFFFF,
+                  0x0000FFFF, 0x80000001, 0x3F800000, 0x00000000, 0x80000000],
+                 np.uint32)])
+    x = bits.view(np.float32).copy()
+    x[:200] = np.array([np.inf, -np.inf, np.nan, 1.0] * 50, np.float32)
+    x = x.reshape(-1, 10)
+    seed = 7
+    want = jak.sr_round_bf16(jnp.asarray(x), seed)
+    got = tak.sr_round_bf16_plain(torch.from_numpy(x), torch.from_numpy(_jax_noise(seed, x.shape)))
+    assert got.dtype == torch.bfloat16
+    gb = got.view(torch.int16).numpy().view(np.uint16)
+    wb = np.asarray(want).view(np.uint16)
+    finite = np.isfinite(x)
+    np.testing.assert_array_equal(gb[finite], wb[finite])
+    np.testing.assert_array_equal(gb[np.isinf(x)], wb[np.isinf(x)])
+    assert np.isnan(got.float().numpy()[np.isnan(x)]).all()
+    # the carries really happened: 0x3F7FFFFF rounds to 1.0 for some noise
+    assert (got.float().numpy() == np.float32(np.inf)).any()
+
+
+def test_sr_rounding_is_unbiased_and_seed_deterministic():
+    """The plain bf16-table update: each new p is one of the two bf16
+    neighbours of the f32 step, the rounding is unbiased (mean rounding
+    error within 5 sigma of 0 over all elements), the same sr_seed gives the
+    same bits and another seed other bits."""
+    rng = np.random.default_rng(14)
+    C, nu = 8192, 8192
+    p, m, v, rows, g = _level(rng, C, nu - 1, 4096)
+    p16 = torch.from_numpy(p).bfloat16()
+    m16, v16 = torch.from_numpy(m).bfloat16(), torch.from_numpy(v).bfloat16()
+    rows_t, g_t = [torch.from_numpy(rows)], [torch.from_numpy(g)]
+
+    def step(seed, p_dtype=torch.bfloat16):
+        tabs = [[p16.clone().to(p_dtype)], [m16.clone()], [v16.clone()]]
+        tak.fused_adam_multi_plain(*tabs, rows_t, g_t, LR, BC1, BC2, [1.0], [nu],
+                                   grads_bf16=True, sr_seed=seed)
+        return tabs[0][0]
+
+    exact = step(None, torch.float32).numpy()  # f32 p: the unrounded step
+    out = step(3)
+    assert out.dtype == torch.bfloat16
+    o = out.float().numpy()
+    bits = exact.view(np.uint32) & np.uint32(0xFFFF0000)
+    down = bits.view(np.float32)  # truncated: the bf16 neighbour towards zero
+    up = (bits + np.uint32(0x10000)).view(np.float32)  # the one away from zero
+    assert np.all((o == down) | (o == up)), "not one of the two bf16 neighbours"
+    ulp = np.abs(up - down)
+    frac = np.abs(exact - down) / ulp
+    err = np.abs(o - down) / ulp - frac  # in ulps, magnitude-wise
+    sigma = np.sqrt(np.sum(frac * (1 - frac))) / err.size
+    assert abs(err.mean()) < 5 * sigma, (err.mean(), sigma)
+    assert torch.equal(step(3).view(torch.int16), out.view(torch.int16))
+    assert (step(4).view(torch.int16) != out.view(torch.int16)).float().mean() > 0.1
+
+
+def test_bf16_params_multi_pre_matches_jax_with_the_same_noise():
+    """K2's bf16-table branch against JAX ``fused_adam_packed_multi_pre``
+    with bf16 p/m/v (its XLA twin, which rounds with ``sr_round_bf16``; the
+    Pallas kernel draws its bits from the TPU's per-tile generator, which
+    interpret mode does not reproduce):
+    handed JAX's noise bits, the port's plain version gives the same bf16
+    tables.  Gradients exact in bf16, so only an f32 operation order can
+    separate the two; at most 0.1% of the elements may differ by one ulp."""
+    rng = np.random.default_rng(15)
+    sizes, n_used, lr_scales = (4096, 2048), (3000, 1500), (1.0, 0.5)
+    shapes, levels, prow, g128, pre = _multi_pre_inputs(rng, sizes, n_used, 1024, True)
+    cat = [_bf16(np.concatenate([lv[k] for lv in levels])) for k in range(3)]
+    seed = 21
+    want = jak.fused_adam_packed_multi_pre(
+        *(c.reshape(-1, 128) for c in cat), g128, prow, pre, jnp.float32(LR),
+        jnp.float32(BC1), jnp.float32(BC2), shapes, lr_scales, use_pallas=False,
+        n_used=n_used, grads_bf16=True, sr_seed=jnp.int32(seed))
+    noise = _jax_noise(seed, (sum(sizes) * D // 128, 128)).reshape(-1)
+    noise_l = torch.split(torch.from_numpy(noise), [C * D for C in sizes])
+    tabs = [list(torch.split(torch.from_numpy(_f32(c)).bfloat16(), list(sizes)))
+            for c in cat]
+    tabs = [[t.contiguous() for t in lv] for lv in tabs]
+    tak.fused_adam_multi_plain(*tabs, _t(*[lv[3] for lv in levels]),
+                               _t(*[lv[4] for lv in levels]), LR, BC1, BC2, lr_scales,
+                               n_used, grads_bf16=True, sr_seed=seed, noise16=noise_l)
+    for name, a, b in zip("pmv", tabs, want):
+        assert a[0].dtype == torch.bfloat16
+        _assert_bf16_equal_but_ties(torch.cat(a), np.asarray(b, np.float32).reshape(-1, D),
+                                    err_msg=name)
+    with pytest.raises(ValueError, match="sr_seed"):  # as JAX, :394-395
+        tak.fused_adam_multi_plain(*tabs, _t(*[lv[3] for lv in levels]),
+                                   _t(*[lv[4] for lv in levels]), LR, BC1, BC2,
+                                   lr_scales, n_used, grads_bf16=True)
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16m", "bf16p"])
+def test_precomputed_prep_gives_the_live_step(variant):
+    """A step with ``pre=entry_prep(...)`` is bit-identical to the live
+    prep, in every variant and through both entry points."""
+    rng = np.random.default_rng(16)
+    sizes, n_used = (2048, 1024), (1500, 1024)
+    levels = [_level(rng, C, nu, 512) for C, nu in zip(sizes, n_used)]
+    pd = torch.bfloat16 if variant == "bf16p" else torch.float32
+    md = torch.float32 if variant == "f32" else torch.bfloat16
+    rows, grads = _t(*[lv[3] for lv in levels]), _t(*[lv[4] for lv in levels])
+
+    def tables():
+        return [[torch.from_numpy(lv[k].copy()).to(dt) for lv in levels]
+                for k, dt in ((0, pd), (1, md), (2, md))]
+
+    kw = dict(grads_bf16=variant != "f32", sr_seed=5 if variant == "bf16p" else None)
+    live, given = tables(), tables()
+    tak.fused_adam_multi(*live, rows, grads, LR, BC1, BC2, (1.0, 0.5), n_used, **kw)
+    pre = tak.entry_prep(rows, sizes, n_used)
+    tak.fused_adam_multi(*given, rows, grads, LR, BC1, BC2, (1.0, 0.5), n_used,
+                         pre=pre, **kw)
+    for a, b in zip(live, given):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    if variant != "bf16p":  # K1 with a per-level prep
+        live, given = tables(), tables()
+        tak.fused_adam(live[0][0], live[1][0], live[2][0], rows[0], grads[0], LR, BC1,
+                       BC2, n_used[0], grads_bf16=kw["grads_bf16"])
+        tak.fused_adam(given[0][0], given[1][0], given[2][0], rows[0], grads[0], LR,
+                       BC1, BC2, n_used[0], grads_bf16=kw["grads_bf16"],
+                       pre=tak.entry_prep(rows[:1], sizes[:1], n_used[:1]))
+        for a, b in zip(live, given):
+            assert torch.equal(a[0], b[0])
+    with pytest.raises(ValueError, match="pre was built"):  # a prep of other heads
+        tak.fused_adam_multi(*tables(), rows, grads, LR, BC1, BC2, (1.0, 0.5),
+                             (1400, 1024), pre=pre, **kw)
+
+
+def test_bf16_gates():
+    """bf16 tables need bf16 moments and an sr_seed, and ride K2 only (the
+    JAX package's fused_adam_packed refuses them); levels share one
+    variant."""
+    p = torch.zeros(64, D)
+    rows = torch.zeros(4, dtype=torch.int32)
+    g = torch.zeros(4, D)
+    b = p.bfloat16()
+    with pytest.raises(TypeError, match="bfloat16/bfloat16"):  # bf16 p, f32 moments
+        tak.fused_adam_multi([b], [p.clone()], [p.clone()], [rows], [g], LR, BC1, BC2,
+                             [1.0], sr_seed=1)
+    with pytest.raises(TypeError, match="fused_adam_multi"):
+        tak.fused_adam(b, b.clone(), b.clone(), rows, g, LR, BC1, BC2)
+    with pytest.raises(ValueError, match="sr_seed"):
+        tak.fused_adam_multi([b], [b.clone()], [b.clone()], [rows], [g], LR, BC1, BC2,
+                             [1.0])
+    with pytest.raises(TypeError, match="share the table dtypes"):
+        tak.fused_adam_multi([p, p.clone()], [p.clone(), b.clone()],
+                             [p.clone(), b.clone()], [rows] * 2, [g] * 2, LR, BC1, BC2,
+                             [1.0, 1.0])

@@ -83,6 +83,34 @@ def test_hashgrid_growth_identical():
     assert jg.corner_counts == tg.corner_counts
 
 
+def test_bf16_tables_grow_as_the_jax_tables_cast():
+    """``cast_features(bfloat16)`` between two growth steps: the tables stay
+    bf16 through the second step's inserts and doublings and hold the JAX
+    package's float32 tables rounded to nearest even (the JAX batch
+    driver's cast), bit for bit."""
+    import ml_dtypes
+
+    jg, _ = _grow_both()
+    rng = np.random.default_rng(0)
+    dirs = rng.standard_normal((3000, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    surf = (dirs * rng.uniform(0.45, 0.55, (3000, 1))).astype(np.float32)
+    tg = thash.HashGridHost(max_level=7, featured_level_num=3, feature_dim=8,
+                            feature_std=0.05, seed=11, init_node_capacity=1 << 8,
+                            init_corner_capacity=1 << 8, device="cpu")
+    tg.update(surf[:1500])
+    rows_before = [f.shape[0] for f in tg.features]
+    tg.cast_features(torch.bfloat16)
+    tg.update(surf[1500:])
+    assert [f.shape[0] for f in tg.features] != rows_before  # a doubling happened
+    for a, b in zip(jg.features, tg.features):
+        assert b.dtype == torch.bfloat16
+        want = np.asarray(a, np.float32).astype(ml_dtypes.bfloat16).view(np.uint16)
+        np.testing.assert_array_equal(b.view(torch.int16).numpy().view(np.uint16), want)
+    with pytest.raises(ValueError):
+        tg.cast_features(torch.float16)
+
+
 def test_lookup_level_identical():
     jg, tg = _grow_both()
     x = np.concatenate([_points(2000, 3) * 0.6, _points(500, 4)]).astype(np.float32)
