@@ -25,6 +25,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    PyTorch library yardstick where one call computes the same step
    (``index_add_`` + fused ``torch.optim.Adam``, f32 only) and the
    bandwidth bound;
+2b. kernel study: each kernel of the JAX round's kernel studies against
+   its plain version at the study scripts' bench shapes (tables of
+   4,194,304 rows of 8, 65,536 sorted entries; a (262,144, 128) table and
+   32,768 row jobs for K7), with its times, a library yardstick where one
+   call computes the same function (fused ``torch.optim.Adam`` over the
+   entries' or a zero gradient, ``torch.stack`` for K4's copy,
+   ``torch.add``, ``index_add_``), and its bound: the one-hot windowed
+   Adam (csrc/onehot_adam.cu) as K3 over exp_fused_adam.py's four (tb, w)
+   tilings, K4's six variants, K5 with a float32 and a bfloat16 copy of p;
+   the Triton sweep (K6) and the tile read-modify-write (K7), bit-equal.
+   Then the five study programs of ``shine_mapping_tpu_torch.experiments`` run at
+   their bench shapes (depth cut to 5 calls per timing), launch counts
+   zeroed before and read after;
 3. training: the batch-mapping main path at full ICRA width
    (config/config_icra2023/maicity_batch.yaml: bs 8192, 3 levels, D 8,
    2x32 MLP, sdf_bce + eikonal 0.1, lr 0.01) on a world built like
@@ -62,6 +75,7 @@ SOURCE = "shine_mapping_tpu_torch/csrc/fused_adam.cu"
 DEVICE = "cuda"  # the card; a rehearsal on the CPU may set "cpu"
 K1_TPU = "shine_mapping_tpu/ops/adam_kernel.py:65"
 K2_TPU = "shine_mapping_tpu/ops/adam_kernel.py:155"
+CUDA_SOURCES = ("fused_adam", "onehot_adam", "tile_rmw")
 # one-ulp ties allowed between bf16 moments of the kernel and of the plain
 # version: the two sum a row's entries in another order, and an f32 value
 # one ulp apart rounds to the other bf16 neighbour when it sits on a
@@ -99,13 +113,18 @@ def phase_device():
     print(f"[device] nvidia-smi: {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    cuda_build.load("fused_adam")
-    info = cuda_build.BUILD_INFO["fused_adam"]
-    print(f"[device] fused_adam.cu: " + ("library already built" if info["log"] == "cached"
+    t0 = time.perf_counter()
+    cuda_build.build_all(CUDA_SOURCES)  # one nvcc per source, all at once
+    print(f"[device] {len(CUDA_SOURCES)} CUDA sources built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in CUDA_SOURCES:
+        cuda_build.load(name)
+        info = cuda_build.BUILD_INFO[name]
+        print(f"[device] {name}.cu: " + ("library already built" if info["log"] == "cached"
                                          else f"built in {info['seconds']:.2f} s"))
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
-            print(f"[device]   ptxas: {line.strip()}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+                print(f"[device]   ptxas: {line.strip()}")
     return smi
 
 
@@ -406,6 +425,240 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
     return rows_json
 
 
+# ----------------------------------------------------------------- phase 2b
+
+# the kernel-study kernels: JSON name -> (kernel, TPU kernel it replaces,
+# route, source)
+_ONEHOT_SRC = "shine_mapping_tpu_torch/csrc/onehot_adam.cu"
+STUDY_KERNELS = {
+    "fused_adam_onehot": ("K3", "experiments/exp_fused_adam.py:58", "cuda", _ONEHOT_SRC),
+    **{f"fused_adam_onehot_{v}": ("K4", "experiments/exp_pallas_debug.py:41", "cuda",
+                                  _ONEHOT_SRC)
+       for v in ("copy", "sweep", "window", "onehot", "dot_bf16", "dot_hi")},
+    **{f"fused_adam_onehot_copy_{c}": ("K5", "experiments/exp_pallas_trainer.py:310", "cuda",
+                                       _ONEHOT_SRC) for c in ("f32", "bf16")},
+    "sweep": ("K6", "experiments/exp_narrow_blocks.py:18", "triton",
+              "shine_mapping_tpu_torch/csrc/sweep_triton.py"),
+    "tile_rmw": ("K7", "experiments/pallas_tile_rmw.py:29", "cuda",
+                 "shine_mapping_tpu_torch/csrc/tile_rmw.cu"),
+}
+ADAM_FLOPS = 15  # f32 operations per table element of one Adam step
+
+
+def _bound(nbytes, flops):
+    """Least time: the bytes over the card's memory rate or the operations
+    over its f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _adam_library_ms(C, D, lr, rows=None, grads=None):
+    """Yardstick only, never called by the port: torch.optim.Adam(fused=True)
+    on a (C, D) table, its gradient index_add_-ed from the entries into a
+    dense one, or held at zero when none are given (K4's g = 0 variants)."""
+    import torch
+
+    q = torch.zeros((C, D), device=DEVICE, requires_grad=True)
+    opt = torch.optim.Adam([q], lr=lr, betas=(0.9, 0.99), eps=1e-15, fused=True)
+    if rows is None:
+        q.grad = torch.zeros_like(q)
+        return cuda_ms(opt.step)
+    rows_l = rows.long()
+
+    def step():
+        q.grad = torch.zeros_like(q).index_add_(0, rows_l, grads)
+        opt.step()
+
+    return cuda_ms(step)
+
+
+def _drive_study(extra=()):
+    """The kernel-study path: the five programs of
+    shine_mapping_tpu_torch.experiments at their bench shapes, depth cut to
+    5 chained calls per timing."""
+    import importlib
+
+    cut = ["--iters", "5", "--reps", "1", "--device", DEVICE, *extra]
+    runs = (("exp_fused_adam", cut), ("exp_pallas_debug", cut + [
+                "--variants", "copy,sweep,window,onehot,dot_bf16,dot_hi"]),
+            ("exp_pallas_trainer", cut), ("exp_narrow_blocks", cut),
+            ("pallas_tile_rmw", cut))
+    for name, argv in runs:
+        mod = importlib.import_module(f"shine_mapping_tpu_torch.experiments.{name}")
+        assert mod.main(argv) == 0, f"{name} failed"
+
+
+def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
+    """Each kernel-study kernel (K3-K7) and variant against its plain
+    version at the study scripts' bench shapes, with its times and bound;
+    then the study programs, launch counts zeroed before and read after."""
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+    from shine_mapping_tpu_torch.ops import sweep as sw
+    from shine_mapping_tpu_torch.ops import tile_rmw as tr
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(3)
+    D = 8
+    E = C * D  # table elements
+    R = E // 128
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    base = [t(rng.normal(0, 1, (C, D)).astype(np.float32)),
+            t(rng.normal(0, 1e-3, (C, D)).astype(np.float32)),
+            t(np.abs(rng.normal(0, 1e-4, (C, D))).astype(np.float32))]
+    rows = t(np.sort(rng.integers(0, C - 1, M)).astype(np.int32))
+    grads = t(rng.normal(0, 1e-3, (M, D)).astype(np.float32))
+    lr, bc1, bc2 = 0.01, 1 - 0.9 ** 5, 1 - 0.99 ** 5
+    scal = torch.tensor([lr, bc1, bc2, 0.0], device=dev)
+    lib_adam = _adam_library_ms(C, D, lr, rows, grads)
+    lib_zero = _adam_library_ms(C, D, lr)
+    out = []
+
+    def record(name, err, ms, plain_ms, nbytes, flops, lib, note="", **extra):
+        kernel, tpu, route, source = STUDY_KERNELS[name]
+        bound, by = _bound(nbytes, flops)
+        out.append(dict(name=name, route=route, source=source, replaces=tpu,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, library_ms=lib, **extra))
+        lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+        print(f"[kernels] {kernel} {name}: max_abs_err {err:.3e}, {note}kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib_s}, bound {bound:.4f} ms ({by})")
+
+    def check(kern, plain):
+        """p, m, v as phase 2 holds them (tolerance by each table's scale,
+        each moved)."""
+        return _check_f32([[a.reshape(C, D)] for a in kern],
+                          [[b.reshape(C, D)] for b in plain], [[x] for x in base], [C])
+
+    # K3: the (tb, w) sweep of exp_fused_adam.py; its first tiling in the JSON
+    prow = (rows // oa.PACK).to(torch.int32)
+    for tb, w in ((256, 256), (128, 128), (512, 512), (256, 512)):
+        kern = oa.fused_adam_onehot(*base, rows, grads, lr, bc1, bc2, tb, w)
+        torch.cuda.synchronize()
+        plain = oa.fused_adam_onehot_plain(*base, rows, grads, lr, bc1, bc2, tb, w)
+        err = check(kern, plain)
+        Mpad = oa.padded_len(M, w)
+        offs = oa.window_offsets(prow, R // tb, tb, w, Mpad)
+        ok = bool(oa.windows_ok(prow, offs, tb, w))
+        ms = cuda_ms(lambda: oa.fused_adam_onehot(*base, rows, grads, lr, bc1, bc2, tb, w))
+        if (tb, w) != (256, 256):
+            print(f"[study] K3 tb={tb} w={w}: max_abs_err {err:.3e}, windows_ok {ok}, "
+                  f"wrapper {ms:.4f} ms")
+            continue
+        outs = [torch.empty_like(x) for x in base]
+        t_kern = cuda_ms(lambda: oa._launch(oa._MODE["narrow"], 0, *base, *outs, None, rows,
+                                            grads, None, offs, None, lr, bc1, bc2, R // tb,
+                                            tb, w, M, 0.9, 0.99, 1e-15))
+        t_plain = cuda_ms(lambda: oa.fused_adam_onehot_plain(*base, rows, grads, lr, bc1, bc2,
+                                                             tb, w), iters=5)
+        record("fused_adam_onehot", err, ms, t_plain, 24 * E + 36 * M, ADAM_FLOPS * E,
+               lib_adam, f"windows_ok {ok}, tb {tb} w {w}, kernel alone {t_kern:.4f} ms, ",
+               kernel_only_ms=t_kern, windows_ok=ok)
+        del outs
+    del kern, plain
+
+    # K4: the six variants of exp_pallas_debug.py at TB 256, W 256
+    tb, w = 256, 256
+    win = oa.window_inputs(rows, grads, C, tb, w)
+    Mpad = win[0].shape[1]
+    ok = bool(oa.windows_ok(prow, win[3], tb, w))
+    lanes_bytes = 4 * Mpad * 128 + 4 * Mpad + 4 * (R // tb)  # hi + lo, prow_p, offs
+    for variant in oa.VARIANTS:
+        kern = oa.fused_adam_onehot_variant(*base, *win, scal, tb, w, variant)
+        torch.cuda.synchronize()
+        plain = oa.fused_adam_onehot_variant_plain(*base, *win, scal, tb, w, variant)
+        if variant == "copy":
+            for a, b, x in zip(kern, plain, base):
+                assert torch.equal(a, x) and torch.equal(b, x), "copy changed a table"
+            err = 0.0
+        else:
+            err = check(kern, plain)
+        del kern, plain
+        ms = cuda_ms(lambda: oa.fused_adam_onehot_variant(*base, *win, scal, tb, w, variant))
+        t_plain = cuda_ms(lambda: oa.fused_adam_onehot_variant_plain(*base, *win, scal, tb, w,
+                                                                     variant), iters=5)
+        dot = variant.startswith("dot")
+        # library: the entries' step for the dot variants, a zero-gradient
+        # step for the g = 0 ones, and for copy torch.stack, whose three
+        # slices are fresh copies of p, m and v
+        lib = (lib_adam if dot else lib_zero if variant != "copy"
+               else cuda_ms(lambda: torch.stack(base)))
+        record(f"fused_adam_onehot_{variant}", err, ms, t_plain,
+               24 * E + (lanes_bytes if dot else 0), 0 if variant == "copy" else ADAM_FLOPS * E,
+               lib, f"windows_ok {ok}, ", windows_ok=ok)
+        torch.cuda.empty_cache()
+    del win
+
+    # K5: exp_pallas_trainer.main2's update at choose_tiles, both copy types
+    tb, w = oa.choose_tiles(C, D, M)
+    win = oa.window_inputs(rows, grads, C, tb, w)
+    Mpad = win[0].shape[1]
+    ok = bool(oa.windows_ok(prow, win[3], tb, w))
+    lanes_bytes = 4 * Mpad * 128 + 4 * Mpad + 4 * (R // tb)
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        kern = [x.clone().view(R, 128) for x in base]
+        plain = [x.clone().view(R, 128) for x in base]
+        pc = oa.fused_adam_onehot_copy(*kern, *win, scal, tb, w, dt)[3]
+        torch.cuda.synchronize()
+        oa.fused_adam_onehot_copy_plain(*plain, *win, scal, tb, w, dt)
+        err = check(kern, plain)
+        assert pc.dtype == dt and torch.equal(pc, kern[0].to(dt)), "pc is not the new p"
+        ms = cuda_ms(lambda: oa.fused_adam_onehot_copy(*kern, *win, scal, tb, w, dt))
+        t_plain = cuda_ms(lambda: oa.fused_adam_onehot_copy_plain(*plain, *win, scal, tb, w,
+                                                                  dt), iters=5)
+        record(f"fused_adam_onehot_copy_{name}", err, ms, t_plain,
+               24 * E + E * pc.element_size() + lanes_bytes, ADAM_FLOPS * E, lib_adam,
+               f"windows_ok {ok}, tb {tb} w {w}, pc == p_new.to({name}), ", windows_ok=ok)
+        del kern, plain, pc
+        torch.cuda.empty_cache()
+    del win, base
+
+    # K6: the narrow-block sweep, Triton
+    x = t(rng.normal(0, 100, (C, D)).astype(np.float32))
+    t0 = time.perf_counter()
+    y = sw.sweep(x)
+    torch.cuda.synchronize()
+    t_jit = time.perf_counter() - t0
+    assert torch.equal(y, sw.sweep_plain(x)), "sweep differs from its plain version"
+    one = torch.ones((), device=dev)
+    record("sweep", 0.0, cuda_ms(lambda: sw.sweep(x)), cuda_ms(lambda: sw.sweep_plain(x)),
+           8 * E, 2 * E, cuda_ms(lambda: torch.add(one, x, alpha=0.5)),
+           f"bit-equal, Triton compile + first call {t_jit:.2f} s, ")
+    del x, y
+
+    # K7: the tile read-modify-write of pallas_tile_rmw.py
+    table = t(rng.standard_normal((T, 128)).astype(np.float32))
+    tiles = t(np.sort(rng.choice(T, N, replace=False)).astype(np.int32))
+    deltas = t(rng.standard_normal((N, 128)).astype(np.float32))
+    kern = tr.tile_rmw(table.clone(), tiles, deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, tr.tile_rmw_plain(table.clone(), tiles, deltas)), \
+        "tile_rmw differs from its plain version"
+    rows_l = tiles.long()
+    record("tile_rmw", 0.0, cuda_ms(lambda: tr.tile_rmw(kern, tiles, deltas)),
+           cuda_ms(lambda: tr.tile_rmw_plain(kern, tiles, deltas)), N * (4 + 3 * 512),
+           N * 128, cuda_ms(lambda: kern.index_add_(0, rows_l, deltas)), "bit-equal, ")
+    del table, kern, deltas
+    torch.cuda.empty_cache()
+
+    for mod in (oa, sw, tr):
+        mod.reset_launch_counts()  # the kernel-study path starts here
+    t0 = time.perf_counter()
+    _drive_study(drive_args)
+    counts = {**oa.LAUNCHES, **sw.LAUNCHES, **tr.LAUNCHES}  # read right after the path
+    print(f"[study] the five study programs ran in {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts}")
+    for r in out:
+        r["launches"] = counts[r["name"]]
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------- phase 3
 
 
@@ -703,6 +956,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     kernels = phase_kernels()
+    study = phase_study()
     cfg = SHINEConfig().load(ICRA_CONFIG)
     print(f"[train] {ICRA_CONFIG}: bs {cfg.bs}, levels {cfg.tree_level_feat}, dim "
           f"{cfg.feature_dim}, mlp {cfg.geo_mlp_level}x{cfg.geo_mlp_hidden_dim}, "
@@ -711,9 +965,11 @@ def main() -> int:
     grid, band, params, launches = phase_train(cfg)
     phase_query(grid, band, params)
     phase_agreement()
-    for k in kernels:
+    for k in kernels:  # K1/K2: counted over the training runs
         k["launches"] = launches[k["name"]]
-        assert k["launches"] > 0, f"{k['name']} never launched on the main path"
+    kernels += study  # K3-K7: counted over the kernel-study programs
+    for k in kernels:
+        assert k["launches"] > 0, f"{k['name']} never launched on its path"
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -56,6 +56,16 @@ def build(name: str) -> str:
     return lib_path
 
 
+def build_all(names) -> None:
+    """Build the given kernel sources at once, one ``nvcc`` each, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for f in [pool.submit(build, n) for n in names]:
+            f.result()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     with _lock:

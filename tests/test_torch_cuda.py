@@ -254,3 +254,165 @@ def test_kernel_pre_matches_live_prep_and_bf16_gates(cuda_device):
     with pytest.raises(ValueError, match="noise16"):
         ak.fused_adam_multi(*b16, rows_l, g_l, LR, BC1, BC2, (1.0, 0.5), n_used,
                             sr_seed=1, noise16=[torch.zeros(1)] * 2)
+
+
+# ------------------------------------------------------------------ kernel-study kernels
+#
+# K3-K5 (csrc/onehot_adam.cu), K6 (Triton, csrc/sweep_triton.py) and K7
+# (csrc/tile_rmw.cu) against their plain versions, run by the same wrappers
+# on CPU copies of the inputs.  Gradients are small integers times 2**-10,
+# so every sum is exact in any order: p, m, v within rtol 1e-6, atol 1e-7
+# (the kernel rounds each operation as torch does), K6 and K7 bit for bit.
+
+
+def _study_inputs(rng, C, M, hot=0):
+    """(C, 8) tables and sorted entries with duplicates; ``hot`` entries
+    crowd tile 3's rows (tb 64) so its window overflows."""
+    p = rng.normal(0, 1, (C, D)).astype(np.float32)
+    m = rng.normal(0, 0.01, (C, D)).astype(np.float32)
+    v = np.abs(rng.normal(0, 1e-4, (C, D))).astype(np.float32)
+    rows = rng.integers(0, C - 1, M)
+    if hot:
+        rows[:hot] = rng.integers(3 * 1024, 4 * 1024, hot)
+    rows = np.sort(rows).astype(np.int32)
+    g = (rng.integers(-32, 33, (M, D)) * 2.0 ** -10).astype(np.float32)
+    return [torch.from_numpy(a) for a in (p, m, v, rows, g)]
+
+
+def _both(ts, device):
+    return [t.clone() for t in ts], [t.to(device) for t in ts]
+
+
+def _close_study(kern, plain):
+    for a, b in zip(kern, plain):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [0, 3000])
+def test_onehot_k3_kernel_matches_plain(cuda_device, hot):
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    rng = np.random.default_rng(21)
+    cpu, dev = _both(_study_inputs(rng, 65536, 8192, hot), cuda_device)
+    plain = oa.fused_adam_onehot(*cpu, LR, BC1, BC2, tb=64, w=256)
+    before = oa.LAUNCHES["fused_adam_onehot"]
+    kern = oa.fused_adam_onehot(*dev, LR, BC1, BC2, tb=64, w=256)
+    torch.cuda.synchronize()
+    assert oa.LAUNCHES["fused_adam_onehot"] == before + 1
+    _close_study(kern, plain)
+    assert (plain[1] != cpu[1]).float().mean() > 0.99  # every row's m decayed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["copy", "sweep", "window", "onehot", "dot_bf16",
+                                     "dot_hi"])
+def test_onehot_k4_variant_kernel_matches_plain(cuda_device, variant):
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    rng = np.random.default_rng(22)
+    C, M, tb, w = 65536, 8192, 64, 256
+    p, m, v, rows, g = _study_inputs(rng, C, M)
+    inputs = [p, m, v, *oa.window_inputs(rows, g, C, tb, w),
+              torch.tensor([LR, BC1, BC2, 0.0])]
+    cpu, dev = _both(inputs, cuda_device)
+    plain = oa.fused_adam_onehot_variant(*cpu, tb, w, variant)
+    key = f"fused_adam_onehot_{variant}"
+    before = oa.LAUNCHES[key]
+    kern = oa.fused_adam_onehot_variant(*dev, tb, w, variant)
+    torch.cuda.synchronize()
+    assert oa.LAUNCHES[key] == before + 1
+    _close_study(kern, plain)
+    for a, b in zip(kern, dev[:3]):
+        assert a.data_ptr() != b.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copy_dtype", [torch.float32, torch.bfloat16])
+def test_onehot_k5_kernel_matches_plain(cuda_device, copy_dtype):
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    rng = np.random.default_rng(23)
+    C, M = 65536, 8192
+    tb, w = oa.choose_tiles(C, D, M)
+    p, m, v, rows, g = _study_inputs(rng, C, M)
+    inputs = [t.view(-1, 128) for t in (p, m, v)] + [
+        *oa.window_inputs(rows, g, C, tb, w), torch.tensor([LR, BC1, BC2, 0.0])]
+    cpu, dev = _both(inputs, cuda_device)
+    plain = oa.fused_adam_onehot_copy(*cpu, tb, w, copy_dtype)
+    name = "f32" if copy_dtype == torch.float32 else "bf16"
+    before = oa.LAUNCHES[f"fused_adam_onehot_copy_{name}"]
+    kern = oa.fused_adam_onehot_copy(*dev, tb, w, copy_dtype)
+    torch.cuda.synchronize()
+    assert oa.LAUNCHES[f"fused_adam_onehot_copy_{name}"] == before + 1
+    for a, b in zip(kern[:3], dev[:3]):  # in place
+        assert a is b
+    _close_study(kern[:3], plain[:3])
+    pc = kern[3]
+    assert pc.dtype == copy_dtype
+    assert torch.equal(pc, kern[0].to(copy_dtype))  # the new p, rounded to nearest even
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["k3", "window", "dot_bf16"])
+def test_onehot_kernel_launches_at_the_largest_window(cuda_device, entry):
+    """The largest window block the wrappers accept fits the kernel's shared
+    memory (its 2 w staged ids beside its static reduction slots); one more
+    entry is refused by the wrapper and by the kernel's host check."""
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    rng = np.random.default_rng(26)
+    C, M, tb, w = 16384, 2048, 64, oa._MAX_W
+    p, m, v, rows, g = _study_inputs(rng, C, M)
+    if entry == "k3":
+        cpu, dev = _both([p, m, v, rows, g], cuda_device)
+        plain = oa.fused_adam_onehot(*cpu, LR, BC1, BC2, tb=tb, w=w)
+        kern = oa.fused_adam_onehot(*dev, LR, BC1, BC2, tb=tb, w=w)
+        with pytest.raises(ValueError, match="outside"):
+            oa.fused_adam_onehot(*dev, LR, BC1, BC2, tb=tb, w=w + 1)
+    else:
+        inputs = [p, m, v, *oa.window_inputs(rows, g, C, tb, w),
+                  torch.tensor([LR, BC1, BC2, 0.0])]
+        cpu, dev = _both(inputs, cuda_device)
+        plain = oa.fused_adam_onehot_variant(*cpu, tb, w, entry)
+        kern = oa.fused_adam_onehot_variant(*dev, tb, w, entry)
+        with pytest.raises(ValueError, match="exceed"):
+            oa.fused_adam_onehot_variant(*dev, tb, w + 1, entry)
+    torch.cuda.synchronize()
+    _close_study(kern, plain)
+    outs = [torch.empty_like(t) for t in dev[:3]]
+    args = (*dev[:3], *outs, None, None, None, None, None, None, LR, BC1, BC2, 0, tb)
+    oa._launch(oa._MODE["sweep"], 0, *args, w, 0, oa.B1, oa.B2, oa.EPS)  # no tiles: accepted
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        oa._launch(oa._MODE["sweep"], 0, *args, w + 1, 0, oa.B1, oa.B2, oa.EPS)
+
+
+@pytest.mark.cuda
+def test_sweep_triton_kernel_matches_plain(cuda_device):
+    from shine_mapping_tpu_torch.ops import sweep as sw
+
+    rng = np.random.default_rng(24)
+    p = torch.from_numpy(rng.normal(0, 100, (65536 + 37, D)).astype(np.float32))
+    before = sw.LAUNCHES["sweep"]
+    out = sw.sweep(p.to(cuda_device))
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES["sweep"] == before + 1
+    assert torch.equal(out.cpu(), sw.sweep_plain(p))
+
+
+@pytest.mark.cuda
+def test_tile_rmw_kernel_matches_plain(cuda_device):
+    from shine_mapping_tpu_torch.ops import tile_rmw as tr
+
+    rng = np.random.default_rng(25)
+    T, N = 8192, 1000
+    table = torch.from_numpy(rng.standard_normal((T, 128)).astype(np.float32))
+    tiles = torch.from_numpy(np.sort(rng.choice(T, N, replace=False)).astype(np.int32))
+    deltas = torch.from_numpy(rng.standard_normal((N, 128)).astype(np.float32))
+    plain = tr.tile_rmw_plain(table.clone(), tiles, deltas)
+    kern = table.to(cuda_device)
+    before = tr.LAUNCHES["tile_rmw"]
+    assert tr.tile_rmw(kern, tiles.to(cuda_device), deltas.to(cuda_device)) is kern
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES["tile_rmw"] == before + 1
+    assert torch.equal(kern.cpu(), plain)
