@@ -8,23 +8,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch, and the
    build of every CUDA kernel from ``shine_mapping_tpu_torch/csrc``;
-2. kernels: each kernel entry point and table-dtype variant against its
-   plain torch version at the main path's shapes (3 levels of 4M-row tables
-   with ~3M used rows, D 8, 65,536 entries per level with duplicates,
-   trashbin rows and headroom):
+2. kernels: the entry prep (csrc/entry_prep.cu) against its plain version
+   (a stable sort: the same tile offsets, dropped count and binned pairs),
+   then each update entry point and table-dtype variant against its plain
+   torch version at the main path's shapes (3 levels of 4M-row tables with
+   ~3M used rows, D 8, 65,536 entries per level with duplicates, trashbin
+   rows and headroom):
    - float32 p/m/v (K1, K2): p, m and v each held at a tolerance set by its
-     own scale, and each seen to move;
+     own scale, each seen to move, and bit-equal on every row with at most
+     one entry (the kernel rounds each operation as torch does);
    - float32 p, bf16 m/v, entries rounded to bf16 (K1, K2): p as above, m
      and v bit-equal but for a stated share of one-ulp ties;
    - bf16 p/m/v with stochastic rounding (K2): each p one of the two bf16
      neighbours of the plain f32 step, unbiased, rounded up as often as its
      fractional position says, the same seed bit-identical, another seed
-     not;
+     not, and bit-equal to the plain version (which rounds with the
+     kernel's Philox bits) on every row with at most one entry;
    headroom bit-identical in all.  With each: its time (wrapper with and
    without a precomputed entry prep, kernel alone), the plain version's, a
    PyTorch library yardstick where one call computes the same step
    (``index_add_`` + fused ``torch.optim.Adam``, f32 only) and the
-   bandwidth bound;
+   bandwidth bound.  Where the parent commit's fused_adam.cu was copied to
+   ``shine_mapping_tpu_torch/csrc/build/parent/`` (git-ignored), its kernel
+   is built too and timed beside the new one in turns (old, new, new, old)
+   on the same inputs, and its stochastic-rounding bits compared;
 2b. kernel study: each kernel of the JAX round's kernel studies against
    its plain version at the study scripts' bench shapes (tables of
    4,194,304 rows of 8, 65,536 sorted entries; a (262,144, 128) table and
@@ -49,7 +56,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    steps of f32 tables and moments on fused windows (K2), 200 of the bf16
    map mode on the same windows (bf16 tables and moments, K2 with
    stochastic rounding), 50 of bf16 moments on per-level windows (K1) and
-   50 of bf16 moments on fused windows with f32 tables (K2);
+   50 of bf16 moments on fused windows with f32 tables (K2); the entry
+   prep's launches counted beside the update's;
 4. query: the trained field at a few thousand points;
 5. agreement: a small world trained on the card and on the CPU (the plain
    versions) from the same weights and batches: both iid updates, and bf16
@@ -64,6 +72,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -72,10 +81,16 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 ICRA_CONFIG = "config/config_icra2023/maicity_batch.yaml"
 SOURCE = "shine_mapping_tpu_torch/csrc/fused_adam.cu"
+PREP_SOURCE = "shine_mapping_tpu_torch/csrc/entry_prep.cu"
+# the JAX package's entry prep of K2 (XLA: it sorts outside the Pallas kernel)
+PREP_TPU = "shine_mapping_tpu/ops/adam_kernel.py:307"
+# a git-ignored copy of the parent commit's fused_adam.cu, when the command
+# that measures the kernel old beside new puts one there
+PARENT_DIR = os.path.join("shine_mapping_tpu_torch", "csrc", "build", "parent")
 DEVICE = "cuda"  # the card; a rehearsal on the CPU may set "cpu"
 K1_TPU = "shine_mapping_tpu/ops/adam_kernel.py:65"
 K2_TPU = "shine_mapping_tpu/ops/adam_kernel.py:155"
-CUDA_SOURCES = ("fused_adam", "onehot_adam", "tile_rmw")
+CUDA_SOURCES = ("fused_adam", "entry_prep", "onehot_adam", "tile_rmw")
 # one-ulp ties allowed between bf16 moments of the kernel and of the plain
 # version: the two sum a row's entries in another order, and an f32 value
 # one ulp apart rounds to the other bf16 neighbour when it sits on a
@@ -193,23 +208,40 @@ def _library_ms(ps, rows_l, g_l, n_used, lrs):
     return cuda_ms(step)
 
 
-def _check_f32(kern, plain, tabs0, n_used, names="pmv"):
+def _check_f32(kern, plain, tabs0, n_used, names="pmv", single=None):
     """Each given table per level: allclose with rtol 1e-5 and an atol of
-    1e-5 of that table's own scale (at most 1e-6), every element of the
-    used head moved by the step, headroom rows bit-identical."""
+    1e-5 of that table's own scale (at most 1e-6), bit-equal on the rows
+    ``single[l]`` (rows with at most one entry, where no sum order can
+    separate the two), every element of the used head moved by the step,
+    headroom rows bit-identical."""
     import torch
 
     err = 0.0
     for name, ks, ps, t0s in zip(names, kern, plain, tabs0):
-        for a, b, t0, nu in zip(ks, ps, t0s, n_used):
+        for l, (a, b, t0, nu) in enumerate(zip(ks, ps, t0s, n_used)):
             a, b, t0 = a.float(), b.float(), t0.float()
             err = max(err, float((a - b).abs().max()))
             atol = min(1e-6, 1e-5 * float(t0[:nu].abs().max()))
             torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+            if single is not None:
+                diff = int((a[single[l]] != b[single[l]]).sum())
+                assert diff == 0, f"{name}: {diff} elements of rows with at most one entry differ"
             moved = float((b[:nu] != t0[:nu]).float().mean())
             assert moved > 0.99, f"{name}: only {moved:.4f} of the used head moved"
             assert torch.equal(a[nu:], t0[nu:]), f"{name}: headroom rows changed"
     return err
+
+
+def _single_rows(rows_l, sizes, n_used):
+    """Per level, a (C,) mask of the rows with at most one entry."""
+    import torch
+
+    out = []
+    for rows, C, nu in zip(rows_l, sizes, n_used):
+        r = rows.long()
+        keep = (r >= 0) & (r < nu) & (r != C - 1)
+        out.append(torch.bincount(r[keep], minlength=C) <= 1)
+    return out
 
 
 def _check_bf16_ties(kern, plain, tabs0, n_used, names="mv"):
@@ -305,6 +337,90 @@ def _check_sr(p_out, p_exact, p0, n_used, p_again, p_other):
     return max_err, mean, sigma, worst
 
 
+def _parent_entry(variant):
+    """The parent commit's kernel, when its fused_adam.cu was copied to
+    PARENT_DIR (git-ignored; the command that measures old beside new puts
+    it there): the ctypes entry of ``variant`` with the parent's interface
+    (sorted rows, gathered gradients), else None."""
+    import ctypes
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.ops import cuda_build
+
+    if not os.path.exists(os.path.join(PARENT_DIR, "fused_adam.cu")):
+        return None
+    lib = cuda_build.load("fused_adam", PARENT_DIR, PARENT_DIR)
+    fn = getattr(lib, ak._C_ENTRY[variant])
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                       + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_float] * 7
+                       + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _parent_launch(fn, ps, ms, vs, rows_s, g_s, n_used, offs, lrs, bc1, bc2, grads_bf16,
+                   seed):
+    import ctypes
+
+    import torch
+
+    L = len(offs)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * L)(*[t.data_ptr() for t in ts])
+
+    err = fn(ptrs(ps), ptrs(ms), ptrs(vs), rows_s.data_ptr(), g_s.data_ptr(), rows_s.shape[0],
+             ps[0].shape[1], L, (ctypes.c_longlong * L)(*offs),
+             (ctypes.c_longlong * L)(*n_used), (ctypes.c_float * L)(*lrs), 0.9, 0.99,
+             1.0 - 0.9, 1.0 - 0.99, bc1, bc2, 1e-15, int(grads_bf16), seed,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"parent kernel launch failed: CUDA error {err}"
+
+
+def _in_turns(old, new):
+    """Device ms of ``old`` and ``new``, timed old, new, new, old."""
+    a = cuda_ms(old)
+    b = cuda_ms(new)
+    c = cuda_ms(new)
+    d = cuda_ms(old)
+    return (a + d) / 2, (b + c) / 2
+
+
+def _check_prep(kern, plain, T):
+    """The card's prep against the plain one (a stable sort): the same tile
+    offsets and dropped count, the same (row, entry) pairs, and each
+    position of the kernel's inside the tile its row belongs to."""
+    import torch
+
+    assert torch.equal(kern.tile_off, plain.tile_off), "tile offsets differ"
+    assert torch.equal(kern.dropped, plain.dropped), "dropped counts differ"
+
+    def pairs(p):
+        return torch.sort((p.rows.long() << 32) | p.order.long()).values
+
+    assert torch.equal(pairs(kern), pairs(plain)), "the binned (row, entry) pairs differ"
+    pos = torch.arange(kern.rows.shape[0], dtype=torch.int32, device=kern.rows.device)
+    pos_tile = torch.searchsorted(kern.tile_off, pos, right=True) - 1
+    kept = kern.rows != 2 ** 31 - 1
+    # the tile of each kept row: the last tile whose first row is <= it
+    row_tile = torch.searchsorted(_tile_starts(kern), kern.rows[kept], right=True) - 1
+    assert torch.equal(pos_tile[kept], row_tile), "an entry lies outside its tile"
+    assert bool((pos_tile[~kept] == T).all()), "an excluded entry lies in a tile"
+
+
+def _tile_starts(pre):
+    """Each tile's first global row (int32, ascending)."""
+    import torch
+
+    starts, off = [], 0
+    for C, nu in zip(pre.sizes, pre.n_used):
+        starts.append(torch.arange(0, nu, pre.tb, dtype=torch.int64) + off)
+        off += C
+    return torch.cat(starts).to(torch.int32).to(pre.rows.device)
+
+
 def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536):
     import numpy as np
     import torch
@@ -320,11 +436,38 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
     scales = [1.0, 0.5, 0.25]  # per-level lr routing
     rng = np.random.default_rng(0)
     tabs0, rows_l, g_l = _kernel_inputs(rng, sizes, n_used, M, D, dev)
+    single = _single_rows(rows_l, sizes, n_used)
     offs = [0, sizes[0], sizes[0] + sizes[1]]
+    ent_off = [0, M, 2 * M]
     rows_json = []
     dtypes = {"f32": (torch.float32, torch.float32),
               "bf16m": (torch.float32, torch.bfloat16),
               "bf16p": (torch.bfloat16, torch.bfloat16)}
+    print(f"[kernels] parent kernel: "
+          + ("timed beside the new one" if os.path.exists(os.path.join(PARENT_DIR, "fused_adam.cu"))
+             else f"absent ({PARENT_DIR}/fused_adam.cu not present), not timed"))
+
+    # the entry prep (csrc/entry_prep.cu) at the multi-level step's shapes
+    tb = ak.tile_rows(D)
+    kern_pre = ak.entry_prep(rows_l, sizes, n_used, D)
+    torch.cuda.synchronize()
+    plain_pre = ak.window_prep(ak.entry_prep_stack_plain([r.reshape(1, -1) for r in rows_l],
+                                                         sizes, n_used, tb), 0)
+    T = kern_pre.tile_off.shape[0] - 1
+    _check_prep(kern_pre, plain_pre, T)
+    t_prep = cuda_ms(lambda: ak.entry_prep(rows_l, sizes, n_used, D))
+    t_prep_plain = cuda_ms(lambda: ak.entry_prep_stack_plain(
+        [r.reshape(1, -1) for r in rows_l], sizes, n_used, tb), iters=5)
+    Mt = 3 * M
+    bound, by = _bound(12 * Mt + 4 * (T + 1) + 8, 0)
+    rows_json.append(dict(name="entry_prep", route="cuda", source=PREP_SOURCE,
+                          replaces=PREP_TPU, max_abs_err=0.0, ms=t_prep, plain_ms=t_prep_plain,
+                          bound_ms=bound, bound_by=by, library_ms=None))
+    print(f"[kernels] prep entry_prep (3 levels, M {Mt}, {T} tiles of {tb} rows, kept "
+          f"{int(kern_pre.tile_off[-1])}, dropped {int(kern_pre.dropped)}): tile offsets, "
+          f"dropped count and binned pairs equal to plain; kernel {t_prep:.4f} ms (memset + 3 "
+          f"launches), plain {t_prep_plain:.4f} ms, library n/a, bound {bound:.4f} ms ({by})")
+    del kern_pre, plain_pre
 
     def tables(levels, variant):
         pd, md = dtypes[variant]
@@ -373,30 +516,72 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
             err, mean, sigma, worst = _check_sr(kern[0], exact[0], t0[0], nu, again[0],
                                                 other[0])
             _, ties = _check_bf16_ties(kern[1:], exact[1:], t0[1:], nu)
+            # the plain version with the kernel's noise (philox_noise16): bit-equal
+            # on every row with at most one entry
+            ref = [[t.clone() for t in lv] for lv in t0]
+            plain(ref)
+            torch.cuda.synchronize()
+            for k in range(3):
+                for a, b, s_ in zip(kern[k], ref[k], single):
+                    diff = int((a[s_].view(torch.int16) != b[s_].view(torch.int16)).sum())
+                    assert diff == 0, f"bf16p: {diff} elements of single-entry rows differ"
             extra = (f"SR mean error {mean:+.2e} ulp (sigma {sigma:.1e}), worst bin "
-                     f"{worst:.4f}, moment ties {ties:.1e}, ")
-            del exact, again, other
+                     f"{worst:.4f}, moment ties {ties:.1e}, bit-equal to plain with "
+                     f"philox_noise16 on single-entry rows, ")
+            del exact, again, other, ref
         else:
             ref = [[t.clone() for t in lv] for lv in t0]
             plain(ref)
             torch.cuda.synchronize()
             if variant == "f32":
-                err = _check_f32(kern, ref, t0, nu)
+                err = _check_f32(kern, ref, t0, nu, single=single)
+                extra = "bit-equal on single-entry rows, "
             else:
-                err = _check_f32(kern[:1], ref[:1], t0[:1], nu, names="p")
+                err = _check_f32(kern[:1], ref[:1], t0[:1], nu, names="p", single=single)
                 e2, ties = _check_bf16_ties(kern[1:], ref[1:], t0[1:], nu)
                 err = max(err, e2)
-                extra = f"moment ties {ties:.1e}, "
+                extra = f"p bit-equal on single-entry rows, moment ties {ties:.1e}, "
             del ref
         sizes_l = sizes[:levels]
-        pre = ak.entry_prep(rl, sizes_l, nu)
+        pre = ak.entry_prep(rl, sizes_l, nu, D)
         t_wrap = cuda_ms(lambda: wrapper(kern))
         t_pre = cuda_ms(lambda: wrapper(kern, pre=pre))
-        g_s = ak._sorted_grads(pre, gl, D)
         lrs = [lr * s for s in sc]
-        t_kern = cuda_ms(lambda: ak._launch(variant, *kern, pre.rows, g_s, nu, offs[:levels],
-                                            lrs, 0.9, 0.99, bc1, bc2, 1e-15,
-                                            kw["grads_bf16"], 7))
+        seed = kw.get("sr_seed", 0)
+
+        def new():
+            ak._launch(variant, *kern, gl, ent_off[:levels], pre, nu, offs[:levels], lrs,
+                       0.9, 0.99, bc1, bc2, 1e-15, kw["grads_bf16"], seed)
+
+        parent = _parent_entry(variant)
+        t_parent = None
+        if parent is not None:
+            old_pre = ak.window_prep(ak.entry_prep_stack_plain(
+                [r.reshape(1, -1) for r in rl], sizes_l, nu, tb), 0)
+            g_s = ak._sorted_grads(old_pre, gl, D)
+
+            def old(ts=kern):
+                _parent_launch(parent, *ts, old_pre.rows, g_s, nu, offs[:levels], lrs, bc1,
+                               bc2, kw["grads_bf16"], seed)
+
+            t_parent, t_kern = _in_turns(old, new)
+            if variant == "bf16p":  # the same keying: the same bits, but where the two
+                # kernels' f32 p_new differ by an ulp and the noise lands between
+                a = [[t.clone() for t in lv] for lv in t0]
+                b = [[t.clone() for t in lv] for lv in t0]
+                old(a)
+                ak._launch(variant, *b, gl, ent_off[:levels], pre, nu, offs[:levels], lrs,
+                           0.9, 0.99, bc1, bc2, 1e-15, True, seed)
+                torch.cuda.synchronize()
+                same = sum(int((x[s_].view(torch.int16) == y[s_].view(torch.int16)).sum())
+                           for x, y, s_ in zip(a[0], b[0], single))
+                total = sum(int(s_.sum()) * D for s_ in single[:levels])
+                assert same >= 0.999 * total, f"parent vs new SR bits: {same} of {total} equal"
+                extra += f"SR bits as the parent's on {same / total:.6f} of single-entry rows, "
+                del a, b
+            del g_s, old_pre
+        else:
+            t_kern = cuda_ms(new)
         scratch = [[t.clone() for t in lv] for lv in t0]
         t_plain = cuda_ms(lambda: plain(scratch), iters=5)
         t_lib = _library_ms(t0[0], rl, gl, nu, lrs) if variant == "f32" else None
@@ -405,14 +590,16 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
         rows_json.append(dict(name=name, route="cuda", source=SOURCE,
                               replaces=K2_TPU if multi else K1_TPU, variant=variant,
                               max_abs_err=err, ms=t_wrap, ms_with_pre=t_pre,
-                              kernel_only_ms=t_kern, plain_ms=t_plain, bound_ms=bound,
-                              bound_by=by, library_ms=t_lib))
+                              kernel_only_ms=t_kern, parent_kernel_ms=t_parent,
+                              plain_ms=t_plain, bound_ms=bound, bound_by=by, library_ms=t_lib))
         lib = "n/a" if t_lib is None else f"{t_lib:.4f} ms"
+        par = "" if t_parent is None else f"parent kernel {t_parent:.4f} ms (in turns), "
         print(f"[kernels] {'K2' if multi else 'K1'} {name} ({levels} level(s), used rows {nu}, "
               f"M {levels * M}): max_abs_err {err:.3e}, {extra}wrapper {t_wrap:.4f} ms, "
-              f"with pre {t_pre:.4f} ms, kernel alone {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
-              f"library {lib}, bound {bound:.4f} ms ({by})")
-        del kern, scratch, g_s, pre
+              f"with pre {t_pre:.4f} ms, kernel alone {t_kern:.4f} ms, {par}plain "
+              f"{t_plain:.4f} ms, library {lib}, bound {bound:.4f} ms ({by}), "
+              f"{bound / t_kern:.0%} of bound")
+        del kern, scratch, pre
         torch.cuda.empty_cache()
 
     case("f32", 1)
@@ -796,9 +983,15 @@ def phase_train(cfg, n_surf=400_000, n_pool=2_000_000):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         assert counts[key] == steps * per_step, f"{key}: {counts[key]} launches, " \
             f"want {steps * per_step}"
-        others = {k: n for k, n in counts.items() if k != key and n}
+        # the entry prep: live before every update launch, or once per
+        # windows build (per prep of the layout)
+        preps = steps * per_step if windows is None else (1 if windows == "fused" else 3)
+        assert counts["entry_prep"] == preps, \
+            f"entry_prep: {counts['entry_prep']} launches, want {preps}"
+        others = {k: n for k, n in counts.items() if k not in (key, "entry_prep") and n}
         assert not others, f"other kernels launched during the {label} run: {others}"
-        launches[key] = launches.get(key, 0) + counts[key]
+        for k in (key, "entry_prep"):
+            launches[k] = launches.get(k, 0) + counts[k]
         runs[key] = params
         fixed_loss[label] = after
         beside = ""
@@ -806,7 +999,8 @@ def phase_train(cfg, n_surf=400_000, n_pool=2_000_000):
             beside = (f" (f32 on the same windows: {fixed_loss['f32, fused windows (K2)']:.6f}, "
                       f"f32 on iid batches: {fixed_loss['multi-level (K2)']:.6f})")
         win_s = f", windows built in {t_win:.3f} s" if windows else ""
-        print(f"[train] {label}: {steps} steps, {counts[key]} launches, fixed-sample loss "
+        print(f"[train] {label}: {steps} steps, {counts[key]} launches (entry_prep "
+              f"{counts['entry_prep']}), fixed-sample loss "
               f"{before:.6f} -> {after:.6f}{beside}, loss per 10 steps "
               f"{[round(x, 5) for x in losses]}, {ms:.3f} ms/step after warm-up (bs "
               f"{cfg.bs}, {cfg.bs / ms * 1e3:.0f} samples/s){win_s}, peak device memory "

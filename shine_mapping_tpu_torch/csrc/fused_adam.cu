@@ -23,51 +23,76 @@
 // is computed from the float32 m_new / v_new (as adam_kernel.py:184-187).
 //
 // What it computes.  Level l's tables p[l], m[l], v[l] are row-major
-// (C_l, D) buffers of their own: the TPU kernel's concatenated table
-// becomes one base pointer per level, so nothing is copied.  Gradient
-// entries (row, D f32 values) carry GLOBAL rows (level l's row r is
-// row_off[l] + r, row_off the running sum of the C_l) and arrive sorted by
-// that row, duplicates allowed.  For every row r < n_used[l] of every level
-// (the used head):
+// (C_l, D) buffers of their own, and so are its gradient entries g[l]
+// (M_l, D): the TPU kernel's concatenated tables become one base pointer
+// per level, so nothing is copied or gathered.  Level l's used head
+// [0, n_used[l]) is cut into tiles of tb rows; the entry prep
+// (csrc/entry_prep.cu, or its plain version) has binned the entries by
+// tile: tile t's entries are positions [tile_off[t], tile_off[t + 1]) of
+// rows (their GLOBAL rows, row_off[l] + r) and order (their index in the
+// levels' entries concatenated; level l's start at ent_off[l]).  For every
+// row r of every used head:
 //     g = sum of the entries of row r          (0 for untouched rows)
 //     m = b1 m + (1 - b1) g,  v = b2 v + (1 - b2) g^2
 //     p = p - lr[l] (m / bc1) / (sqrt(v / bc2) + eps)
 // in place.  Untouched rows still decay (reference dense Adam).  Rows past a
-// level's used head are never visited and stay bit-identical; entries whose
-// row lies outside every used head (the wrapper maps trashbin and dropped
-// entries to a sentinel row) are never read.
+// level's used head are never visited and stay bit-identical; the prep
+// leaves trashbin and out-of-head entries out of every tile.  Every
+// product, quotient, root and sum is rounded on its own (__fmul_rn and
+// friends, no contraction into FMAs), as the plain torch version rounds, so
+// on rows with at most one entry the float32 results equal it bit for bit.
 //
 // Stochastic rounding (bf16 p).  Output bits = (bits(p_new) + noise16) &
 // 0xFFFF0000, non-finite values passed through: the operation of the XLA
 // twin sr_round_bf16 (adam_kernel.py:778-789).  The 16 noise bits are a pure
-// function of (seed, level, element index): Philox4x32-10 keyed by the
-// per-step seed, one call per 8 consecutive elements of a level (128 bits =
-// 8 x 16).  The TPU kernel seeds its generator per tile (prng_seed(seed +
-// t), :194); keying by element makes the result independent of the tile
-// size and of the grid, so a change of either cannot change a trajectory.
+// function of (seed, level, element index): Philox4x32-10 with counter
+// (group lo, group hi, level, 0) and key (seed, 0x53524E44), one call per
+// aligned group of 8 elements of a level (128 bits = 8 x 16); element 8 k + j
+// takes bits 16 (j & 1) of word j >> 1.  ops/adam_kernel.philox_noise16 is
+// the same function in torch.  The TPU kernel seeds its generator per tile
+// (prng_seed(seed + t), :194); keying by element makes the result
+// independent of the tile size and of the grid.
 //
-// Design.  One CTA per tile of tb = TILE_ELEMS / D rows of one level (a tile
-// never straddles a level, so it has one lr).  The CTA binary-searches its
-// row range [row0, row0 + nrows) in the sorted entry rows, sums those
-// entries into a (tb, D) f32 tile in shared memory with shared-memory
-// atomics (f32 sums match the plain version up to addition order), then
-// sweeps the tile: read p, m, v once, apply Adam, write them once.  The TPU
-// kernel's one-hot bf16 hi+lo MXU matmul (adam_kernel.py:74-84) was a trick
-// for the TPU's matrix unit and is not copied.  With bf16 p the CTA first
-// draws its tile's noise into shared memory (one Philox call per 8
-// elements, 4 KB), so the sweep reads and writes the tables coalesced, as
-// in the other variants.
-//
-// Bound.  Memory bandwidth: per step the kernel reads and writes p, m and v
+// Bound: memory bandwidth.  Per step the kernel reads and writes p, m and v
 // over the used heads -- 24 B per table element for f32 p/m/v, 16 B for f32
-// p with bf16 m/v, 12 B for bf16 p/m/v -- plus 4 + 4 D bytes per entry, and
-// does ~13 flops per element (far below the f32 rate; Philox adds ~8 integer
-// multiplies per element with bf16 p, also far below the integer rate).  At
-// the smoke's used rows (3.41M + 3.15M + 2.62M rows x D 8 = 73.4M elements):
-// 1.76 GB / 1.17 GB / 0.88 GB per step, >= 0.53 / 0.35 / 0.26 ms at
-// 3.35 TB/s; chip_smoke.py recomputes each bound from the sizes it runs.
-// Simple first: scalar loads, one tile per CTA.  16-byte vector loads, a
-// persistent grid, or cp.async / TMA staging are later work.
+// p with bf16 m/v, 12 B for bf16 p/m/v -- plus 8 + 4 D bytes per binned
+// entry; ~13 flops per element (far below the f32 rate; Philox adds ~8
+// integer multiplies per element with bf16 p).  At the smoke's used rows
+// (3.18M + 3.07M + 2.40M rows x D 8): 1.76 / 1.17 / 0.88 GB, >= 0.53 / 0.35
+// / 0.26 ms at 3.35 TB/s; chip_smoke.py recomputes each bound.
+//
+// Design, and what each choice does about the bound:
+// - 16-byte sweep.  A tile is tb rows, tb a multiple of 8 (tile_rows in the
+//   wrapper: 256 at D 8), so every tile starts on an aligned group of 8
+//   elements whatever D is.  Each thread owns whole groups: two float4
+//   loads and stores per f32 table, one 16-byte access per bf16 table (the
+//   parent kernel's scalar 4-byte accesses left too few bytes in flight to
+//   cover the memory latency).  A level whose element count is not a
+//   multiple of 8 ends in a scalar tail group.
+// - 128 threads a CTA, each holding two groups of its tile (2,048
+//   elements, 8 KB of f32 sums) in registers as loaded (4 registers per
+//   bf16 group), both loads issued before the tile's entries are summed:
+//   the table stream overlaps the sum and its barriers, and twice the
+//   bytes are in flight per thread.  In a trial on the card this beat 256
+//   threads with one group each and 64 threads with four in every variant
+//   (the bf16 ones most: their groups are half the bytes).
+// - Per-tile ranges come from the prep (tile_off): two loads per CTA where
+//   the parent kernel's thread 0 ran two serial binary searches (~36
+//   dependent L2 round trips) while the CTA waited.  The prep bins by tile
+//   in three small launches, which also replace the live sort.
+// - Segmented sum: shared-memory atomics into a (tb, D) f32 tile.  Most
+//   tiles hold a handful of entries; a tile with none skips the zeroing,
+//   the sum and both barriers (its g is 0).
+// - Gradients are read in place through order from the levels' own (M_l, D)
+//   tensors (one pointer per level): no concatenated, gathered copy.
+// - Stochastic rounding: the thread that owns a group makes that group's
+//   one Philox call itself, so no noise is staged in shared memory.
+// - One CTA per tile (~36k at the main path's sizes); a persistent grid or
+//   cp.async / TMA staging is later work.  The bf16-p variant moves the
+//   fewest bytes per element but does the most work per element (a Philox
+//   call per group, ten rounds of 32-bit multiplies, besides the correctly
+//   rounded quotients and root of every variant): the likely reason it
+//   stays furthest from its bytes bound (not yet measured).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,38 +100,52 @@
 #include <type_traits>
 
 #define MAX_LEVELS 16
-#define TILE_ELEMS 2048  // floats per tile: 8 KB of shared memory
-#define THREADS 256
+#define THREADS 128
+#define GPT 2  // groups of 8 elements a thread prefetches: 2,048-element tiles
+#define SMEM_DEFAULT (48 * 1024)  // dynamic shared memory without opting in
+#define SMEM_MAX (227 * 1024)
 
 struct Levels {
   void* p[MAX_LEVELS];            // level l's (C_l, D) tables
   void* m[MAX_LEVELS];
   void* v[MAX_LEVELS];
+  const float* g[MAX_LEVELS];     // level l's (M_l, D) gradient entries
+  long long ent_off[MAX_LEVELS];  // first entry of level l in the concatenation
   long long row_off[MAX_LEVELS];  // first global row of level l
   long long n_used[MAX_LEVELS];   // rows swept of level l (its used head)
-  int tile_off[MAX_LEVELS + 1];   // first tile of level l; [L] = total tiles
+  int tile_lo[MAX_LEVELS + 1];    // first tile of level l; [L] = total tiles
   float lr[MAX_LEVELS];           // learning rate of level l
   int n_levels;
 };
 
-// first index i in sorted a[0, n) with a[i] >= key
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           long long key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long long)a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
+struct Hyper {
+  float b1, b2, omb1, omb2, bc1, bc2, eps;
+};
 
-__device__ __forceinline__ float load(const float* a, int i) { return a[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* a, int i) {
-  return __bfloat162float(a[i]);
+// 8 consecutive float32, 16-byte aligned (the gradient tile in shared memory)
+__device__ __forceinline__ void load8(const float* a, float (&x)[8]) {
+  const float4 u = *reinterpret_cast<const float4*>(a);
+  const float4 w = *reinterpret_cast<const float4*>(a + 4);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  x[4] = w.x; x[5] = w.y; x[6] = w.z; x[7] = w.w;
 }
-__device__ __forceinline__ void store(float* a, int i, float x) { a[i] = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* a, int i, float x) {
-  a[i] = __float2bfloat16_rn(x);  // round to nearest even, as astype(bf16)
+__device__ __forceinline__ void store8(float* a, const float (&x)[8]) {
+  *reinterpret_cast<float4*>(a) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(a + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // round to nearest even
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* a, const float (&x)[8]) {
+  unsigned q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    q[j] = (unsigned)bf16_bits(x[2 * j]) | ((unsigned)bf16_bits(x[2 * j + 1]) << 16);
+  *reinterpret_cast<uint4*>(a) = make_uint4(q[0], q[1], q[2], q[3]);
+}
+__device__ __forceinline__ void store1(float* a, int i, float x) { a[i] = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* a, int i, float x) {
+  a[i] = __float2bfloat16_rn(x);
 }
 
 // Philox4x32-10 (Salmon et al., SC'11), counter-based: a pure function of
@@ -123,105 +162,224 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-// f32 -> bf16 by adding 16 noise bits below the mantissa cut and
+// f32 -> bf16 bits by adding 16 noise bits below the mantissa cut and
 // truncating: carries run into the exponent; non-finite values pass through
-__device__ __forceinline__ __nv_bfloat16 sr_bf16(float x, unsigned noise16) {
+__device__ __forceinline__ unsigned short sr_bits(float x, unsigned noise16) {
   const unsigned bits = __float_as_uint(x);
-  if ((bits & 0x7F800000u) == 0x7F800000u) return __float2bfloat16_rn(x);
-  return __ushort_as_bfloat16((unsigned short)((bits + noise16) >> 16));
+  if ((bits & 0x7F800000u) == 0x7F800000u) return bf16_bits(x);
+  return (unsigned short)((bits + (noise16 & 0xFFFFu)) >> 16);
 }
 
+// one element's Adam step, each operation rounded on its own
+__device__ __forceinline__ void adam1(float& p, float& m, float& v, float g, float lr,
+                                      const Hyper& h) {
+  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, g));
+  v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(h.omb2, g), g));
+  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, h.bc2)), h.eps);
+  p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr, __fdiv_rn(m, h.bc1)), den));
+}
+
+// 8 consecutive elements as loaded: two float4 of f32, one uint4 of bf16
+// (4 registers), widened to float only when the group is stepped
+template <typename T> struct Raw8;
+template <> struct Raw8<float> { float4 a, b; };
+template <> struct Raw8<__nv_bfloat16> { uint4 a; };
+
+__device__ __forceinline__ void load_raw(const float* a, int n, Raw8<float>& r) {
+  if (n == 8) {
+    r.a = *reinterpret_cast<const float4*>(a);
+    r.b = *reinterpret_cast<const float4*>(a + 4);
+  } else {
+    float x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = j < n ? a[j] : 0.f;
+    r.a = make_float4(x[0], x[1], x[2], x[3]);
+    r.b = make_float4(x[4], x[5], x[6], x[7]);
+  }
+}
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* a, int n, Raw8<__nv_bfloat16>& r) {
+  if (n == 8) {
+    r.a = *reinterpret_cast<const uint4*>(a);
+  } else {
+    unsigned short x[8];
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(a);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = j < n ? u[j] : 0;
+    r.a = make_uint4(x[0] | ((unsigned)x[1] << 16), x[2] | ((unsigned)x[3] << 16),
+                     x[4] | ((unsigned)x[5] << 16), x[6] | ((unsigned)x[7] << 16));
+  }
+}
+__device__ __forceinline__ void unpack(const Raw8<float>& r, float (&x)[8]) {
+  x[0] = r.a.x; x[1] = r.a.y; x[2] = r.a.z; x[3] = r.a.w;
+  x[4] = r.b.x; x[5] = r.b.y; x[6] = r.b.z; x[7] = r.b.w;
+}
+__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float (&x)[8]) {
+  const unsigned q[4] = {r.a.x, r.a.y, r.a.z, r.a.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[2 * j] = __uint_as_float(q[j] << 16);
+    x[2 * j + 1] = __uint_as_float(q[j] & 0xFFFF0000u);
+  }
+}
+
+template <typename P, typename Mt>
+struct Group {
+  Raw8<P> p;
+  Raw8<Mt> m, v;
+};
+
+// group q of the tile (elements e0 = 8 q ...; the last may be a tail of n < 8)
+template <typename P, typename Mt>
+__device__ __forceinline__ void load_group(Group<P, Mt>& r, const P* p, const Mt* m,
+                                           const Mt* v, int e0, int n) {
+  load_raw(p + e0, n, r.p);
+  load_raw(m + e0, n, r.m);
+  load_raw(v + e0, n, r.v);
+}
+
+template <typename P, typename Mt>
+__device__ __forceinline__ void finish_group(const Group<P, Mt>& r, P* p, Mt* m, Mt* v,
+                                             int e0, int n, const float* gt, float lr,
+                                             const Hyper& h, long long grp, int level,
+                                             unsigned seed) {
+  float pf[8], mf[8], vf[8], g[8];
+  unpack(r.p, pf);
+  unpack(r.m, mf);
+  unpack(r.v, vf);
+  if (gt != nullptr) {
+    load8(gt + e0, g);  // shared memory; the tile is a whole number of groups
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) g[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) adam1(pf[j], mf[j], vf[j], g[j], lr, h);
+  if constexpr (std::is_same<P, __nv_bfloat16>::value) {
+    const uint4 w = philox4x32_10(
+        make_uint4((unsigned)grp, (unsigned)(grp >> 32), (unsigned)level, 0u),
+        make_uint2(seed, 0x53524E44u));
+    const unsigned q[4] = {w.x, w.y, w.z, w.w};
+    unsigned short b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = sr_bits(pf[j], q[j >> 1] >> ((j & 1) * 16));
+    if (n == 8) {
+      *reinterpret_cast<uint4*>(p + e0) =
+          make_uint4(b[0] | ((unsigned)b[1] << 16), b[2] | ((unsigned)b[3] << 16),
+                     b[4] | ((unsigned)b[5] << 16), b[6] | ((unsigned)b[7] << 16));
+    } else {
+      for (int j = 0; j < n; ++j) p[e0 + j] = __ushort_as_bfloat16(b[j]);
+    }
+  } else {
+    if (n == 8) store8(p + e0, pf);
+    else for (int j = 0; j < n; ++j) store1(p, e0 + j, pf[j]);
+  }
+  if (n == 8) {
+    store8(m + e0, mf);
+    store8(v + e0, vf);
+  } else {
+    for (int j = 0; j < n; ++j) {
+      store1(m, e0 + j, mf[j]);
+      store1(v, e0 + j, vf[j]);
+    }
+  }
+}
+
+// THREADS threads a CTA; each prefetches GPT groups of its tile (the whole
+// of a 2,048-element tile) before the entries are summed
 template <typename P, typename Mt, bool GRADS_BF16>
 __global__ void __launch_bounds__(THREADS) fused_adam_kernel(
-    const int* __restrict__ rows, const float* __restrict__ g, int M, int D,
-    int tb, Levels lv, float b1, float b2, float omb1, float omb2, float bc1,
-    float bc2, float eps, unsigned seed) {
-  extern __shared__ float gtile[];
-  __shared__ int s_lo, s_hi;
+    const int* __restrict__ rows, const int* __restrict__ order,
+    const int* __restrict__ tile_off, int D, int tb, Levels lv, Hyper h, unsigned seed) {
+  extern __shared__ float4 smem4[];
+  float* gtile = reinterpret_cast<float*>(smem4);
 
   const int t = blockIdx.x;
   int l = 0;
-  while (l + 1 < lv.n_levels && t >= lv.tile_off[l + 1]) ++l;
-  const long long k = t - lv.tile_off[l];
-  const long long row0 = lv.row_off[l] + k * tb;  // global, as the entries
+  while (l + 1 < lv.n_levels && t >= lv.tile_lo[l + 1]) ++l;
+  const long long k = t - lv.tile_lo[l];
   const long long left = lv.n_used[l] - k * tb;
-  const int nrows = (int)(left < tb ? left : tb);
-  const int nel = nrows * D;
-
-  for (int e = threadIdx.x; e < nel; e += THREADS) gtile[e] = 0.f;
-  if (threadIdx.x == 0) {
-    s_lo = lower_bound(rows, M, row0);
-    s_hi = lower_bound(rows, M, row0 + nrows);
-  }
-  __syncthreads();
-
-  // segmented sum of this tile's entries (entry-major, D lanes each)
-  const int lo = s_lo;
-  const int n = (s_hi - s_lo) * D;
-  for (int e = threadIdx.x; e < n; e += THREADS) {
-    const int j = lo + e / D;
-    const int d = e - (e / D) * D;
-    float gv = g[(long long)j * D + d];
-    if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
-    atomicAdd(&gtile[(int)(rows[j] - row0) * D + d], gv);
-  }
-  __syncthreads();
-
-  // dense Adam over every row of the tile, touched or not
-  const float lr = lv.lr[l];
+  const int nel = (int)(left < tb ? left : tb) * D;  // the tile's elements
+  const int n_groups = (nel + 7) >> 3;
   const long long base = k * tb * D;  // the tile's first element in level l
   P* __restrict__ p = static_cast<P*>(lv.p[l]) + base;
   Mt* __restrict__ m = static_cast<Mt*>(lv.m[l]) + base;
   Mt* __restrict__ v = static_cast<Mt*>(lv.v[l]) + base;
-  constexpr bool SR = std::is_same<P, __nv_bfloat16>::value;
-  // bf16 p: the tile's 16-bit rounding noise, one Philox call per 8-element
-  // group of the level, staged in shared memory so the sweep stays coalesced
-  __shared__ unsigned short noise[SR ? TILE_ELEMS : 1];
-  if constexpr (SR) {
-    const long long g_end = (base + nel - 1) >> 3;
-    for (long long grp = (base >> 3) + threadIdx.x; grp <= g_end;
-         grp += THREADS) {
-      const uint4 r = philox4x32_10(
-          make_uint4((unsigned)grp, (unsigned)(grp >> 32), (unsigned)l, 0u),
-          make_uint2(seed, 0x53524E44u));
-      const unsigned w[4] = {r.x, r.y, r.z, r.w};
+
+  // this thread's first GPT groups, in flight while the entries are summed
+  Group<P, Mt> r[GPT];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const long long e = grp * 8 + j - base;
-        if (e >= 0 && e < nel)
-          noise[e] = (unsigned short)(w[j >> 1] >> ((j & 1) * 16));
-      }
+  for (int i = 0; i < GPT; ++i) {
+    const int q = threadIdx.x + i * THREADS;
+    if (q < n_groups) load_group(r[i], p, m, v, q << 3, min(8, nel - (q << 3)));
+  }
+
+  const int lo = tile_off[t], hi = tile_off[t + 1];
+  const bool touched = hi > lo;  // the same for the whole CTA
+  if (touched) {
+    const int n4 = (tb * D) >> 2;  // tb * D is a multiple of 8
+    for (int e = threadIdx.x; e < n4; e += THREADS) smem4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    const long long row0 = lv.row_off[l] + k * tb;  // global, as the entries
+    const float* __restrict__ g = lv.g[l];
+    const long long eo = lv.ent_off[l];
+    const int n = (hi - lo) * D;
+    for (int e = threadIdx.x; e < n; e += THREADS) {
+      const int j = lo + e / D;
+      const int d = e - (e / D) * D;
+      float gv = g[((long long)order[j] - eo) * D + d];
+      if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
+      atomicAdd(&gtile[(int)(rows[j] - row0) * D + d], gv);
     }
     __syncthreads();
   }
-  for (int e = threadIdx.x; e < nel; e += THREADS) {
-    const float gi = gtile[e];
-    const float mi = b1 * load(m, e) + omb1 * gi;
-    const float vi = b2 * load(v, e) + omb2 * gi * gi;
-    const float pn = load(p, e) - lr * (mi / bc1) / (sqrtf(vi / bc2) + eps);
-    if constexpr (SR)
-      p[e] = sr_bf16(pn, noise[e]);
-    else
-      p[e] = pn;
-    store(m, e, mi);
-    store(v, e, vi);
+
+  const float lr = lv.lr[l];
+  const long long grp0 = base >> 3;
+  const float* gt = touched ? gtile : nullptr;
+#pragma unroll
+  for (int i = 0; i < GPT; ++i) {
+    const int q = threadIdx.x + i * THREADS;
+    if (q < n_groups)
+      finish_group(r[i], p, m, v, q << 3, min(8, nel - (q << 3)), gt, lr, h, grp0 + q, l, seed);
+  }
+  // tiles of more than GPT * THREADS groups (D > 256, where tb is 8 rows)
+  for (int q = threadIdx.x + GPT * THREADS; q < n_groups; q += THREADS) {
+    Group<P, Mt> x;
+    load_group(x, p, m, v, q << 3, min(8, nel - (q << 3)));
+    finish_group(x, p, m, v, q << 3, min(8, nel - (q << 3)), gt, lr, h, grp0 + q, l, seed);
   }
 }
 
+template <typename P, typename Mt, bool GB>
+static int launch_t(unsigned tiles, size_t smem, cudaStream_t s, const int* rows,
+                    const int* order, const int* tile_off, int D, int tb, const Levels& lv,
+                    const Hyper& h, unsigned seed) {
+  if (smem > SMEM_DEFAULT) {
+    const cudaError_t e = cudaFuncSetAttribute(fused_adam_kernel<P, Mt, GB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_adam_kernel<P, Mt, GB><<<tiles, THREADS, smem, s>>>(rows, order, tile_off, D, tb, lv,
+                                                             h, seed);
+  return 0;
+}
+
 // Launches the step on `stream`; returns cudaGetLastError() (0 = launched).
-// p, m, v (device pointers, one per level), row_off, n_used and lr are HOST
-// arrays of n_levels entries.
+// p, m, v, g (device pointers, one per level), ent_off, row_off, n_used and
+// lr are HOST arrays of n_levels entries; rows, order (M) and tile_off
+// (tiles + 1) device arrays from the entry prep with the same tb.
 template <typename P, typename Mt>
-static int launch(void* const* p, void* const* m, void* const* v,
-                  const int* rows, const float* g, int M, int D, int n_levels,
-                  const long long* row_off, const long long* n_used,
-                  const float* lr, float b1, float b2, float omb1, float omb2,
-                  float bc1, float bc2, float eps, int grads_bf16,
-                  unsigned seed, void* stream) {
-  if (n_levels < 1 || n_levels > MAX_LEVELS || D < 1 || D > TILE_ELEMS ||
-      M < 0)
+static int launch(void* const* p, void* const* m, void* const* v, const void* const* g,
+                  const long long* ent_off, const int* rows, const int* order,
+                  const int* tile_off, int D, int tb, int n_levels, const long long* row_off,
+                  const long long* n_used, const float* lr, float b1, float b2, float omb1,
+                  float omb2, float bc1, float bc2, float eps, int grads_bf16, unsigned seed,
+                  void* stream) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS || D < 1 || tb < 8 || tb % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const int tb = TILE_ELEMS / D;
+  const size_t smem = (size_t)tb * D * sizeof(float);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   Levels lv;
   long long tiles = 0;
   for (int l = 0; l < n_levels; ++l) {
@@ -229,43 +387,43 @@ static int launch(void* const* p, void* const* m, void* const* v,
     lv.p[l] = p[l];
     lv.m[l] = m[l];
     lv.v[l] = v[l];
+    lv.g[l] = static_cast<const float*>(g[l]);
+    lv.ent_off[l] = ent_off[l];
     lv.row_off[l] = row_off[l];
     lv.n_used[l] = n_used[l];
-    lv.tile_off[l] = (int)tiles;
+    lv.tile_lo[l] = (int)tiles;
     lv.lr[l] = lr[l];
     tiles += (n_used[l] + tb - 1) / tb;
   }
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  lv.tile_off[n_levels] = (int)tiles;
+  lv.tile_lo[n_levels] = (int)tiles;
   lv.n_levels = n_levels;
+  const Hyper h{b1, b2, omb1, omb2, bc1, bc2, eps};
   if (tiles > 0) {
-    const size_t smem = (size_t)tb * D * sizeof(float);
     cudaStream_t s = (cudaStream_t)stream;
-    if (grads_bf16)
-      fused_adam_kernel<P, Mt, true><<<(unsigned)tiles, THREADS, smem, s>>>(
-          rows, g, M, D, tb, lv, b1, b2, omb1, omb2, bc1, bc2, eps, seed);
-    else
-      fused_adam_kernel<P, Mt, false><<<(unsigned)tiles, THREADS, smem, s>>>(
-          rows, g, M, D, tb, lv, b1, b2, omb1, omb2, bc1, bc2, eps, seed);
+    const int err = grads_bf16
+        ? launch_t<P, Mt, true>((unsigned)tiles, smem, s, rows, order, tile_off, D, tb, lv, h,
+                                seed)
+        : launch_t<P, Mt, false>((unsigned)tiles, smem, s, rows, order, tile_off, D, tb, lv, h,
+                                 seed);
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
-#define FUSED_ADAM_ARGS                                                      \
-  void *const *p, void *const *m, void *const *v, const int *rows,           \
-      const float *g, int M, int D, int n_levels, const long long *row_off,  \
-      const long long *n_used, const float *lr, float b1, float b2,          \
-      float omb1, float omb2, float bc1, float bc2, float eps,               \
-      int grads_bf16, unsigned seed, void *stream
-#define FUSED_ADAM_PASS                                                       \
-  p, m, v, rows, g, M, D, n_levels, row_off, n_used, lr, b1, b2, omb1, omb2, \
-      bc1, bc2, eps, grads_bf16, seed, stream
+#define FUSED_ADAM_ARGS                                                                 \
+  void *const *p, void *const *m, void *const *v, const void *const *g,                \
+      const long long *ent_off, const int *rows, const int *order, const int *tile_off, \
+      int D, int tb, int n_levels, const long long *row_off, const long long *n_used,   \
+      const float *lr, float b1, float b2, float omb1, float omb2, float bc1, float bc2, \
+      float eps, int grads_bf16, unsigned seed, void *stream
+#define FUSED_ADAM_PASS                                                                \
+  p, m, v, g, ent_off, rows, order, tile_off, D, tb, n_levels, row_off, n_used, lr, b1, \
+      b2, omb1, omb2, bc1, bc2, eps, grads_bf16, seed, stream
 
 extern "C" {
 
-int fused_adam_f32(FUSED_ADAM_ARGS) {
-  return launch<float, float>(FUSED_ADAM_PASS);
-}
+int fused_adam_f32(FUSED_ADAM_ARGS) { return launch<float, float>(FUSED_ADAM_PASS); }
 
 int fused_adam_f32p_bf16m(FUSED_ADAM_ARGS) {
   return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS);

@@ -38,9 +38,14 @@ it as a 0-dim device tensor (no host sync).  Such entries are left out of
 the step.
 
 The gradient-independent part of a step — the entries' rows globalised and
-sorted — is an :class:`EntryPrep` (:func:`entry_prep`).  A caller whose
-batches are known in advance (the trainer's epoch windows) computes it once
-per batch and passes it as ``pre=``, so the step skips the sort.
+binned by the kernel's tile — is an :class:`EntryPrep` (:func:`entry_prep`):
+on CUDA tensors the kernels of ``csrc/entry_prep.cu`` (after one memset, so
+a live step is five device ops in all), on CPU tensors their plain version,
+a stable sort.  A caller whose batches are known in advance (the trainer's
+epoch windows) computes it once per batch and passes it as ``pre=``, so the
+step is the update kernel alone.  The kernel reads each level's gradients in
+place; tables and gradients must be contiguous and start on a 16-byte
+boundary.
 
 All functions update ``p``, ``m``, ``v`` in place.
 """
@@ -48,7 +53,7 @@ All functions update ``p``, ``m``, ``v`` in place.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,6 +75,7 @@ _SUFFIX = {"f32": "", "bf16m": "_bf16m", "bf16p": "_bf16p"}
 LAUNCHES: Dict[str, int] = {
     "fused_adam": 0, "fused_adam_bf16m": 0,
     "fused_adam_multi": 0, "fused_adam_multi_bf16m": 0, "fused_adam_multi_bf16p": 0,
+    "entry_prep": 0,  # csrc/entry_prep.cu, one per prep (its three kernels)
 }
 
 MAX_LEVELS = 16  # csrc/fused_adam.cu MAX_LEVELS
@@ -153,94 +159,195 @@ def _per_level(ps, rows_list, g_list):
 # ------------------------------------------------------------------ entry prep
 
 
-class EntryPrep(NamedTuple):
-    """What a step needs of its entries' rows alone (no gradients).
+def tile_rows(D: int) -> int:
+    """Rows per tile of the kernel (csrc/fused_adam.cu) for feature width
+    ``D``: a multiple of 8, so every tile starts on an aligned group of 8
+    elements, and at most 2,048 elements (8 KB of f32 sums) where D allows
+    (256 rows at D 8)."""
+    return max(8, (2048 // int(D)) // 8 * 8)
 
-    rows:    (M,) int32 — the entries' GLOBAL rows (level l's row r is
-             ``sum(sizes[:l]) + r``), ascending; trashbin entries and
-             entries past a used head carry a sentinel past every row
-    order:   (M,) int32 — sorted entry j is entry ``order[j]`` of the
-             levels' entries concatenated (a stable sort)
-    dropped: () int64 — entries past a used head (trashbin rows excluded)
-    sizes, n_used: the per-level table rows and used heads it was built for
+
+def _tiles(n_used: Sequence[int], tb: int) -> Tuple[List[int], int]:
+    """First tile of each level and the total, for used heads ``n_used``."""
+    lo, T = [], 0
+    for nu in n_used:
+        lo.append(T)
+        T += -(-int(nu) // tb)
+    return lo, T
+
+
+class EntryPrep(NamedTuple):
+    """What a step needs of its entries' rows alone (no gradients): the
+    entries binned by the kernel's tile.
+
+    rows:     (M,) int32 — the entries' GLOBAL rows (level l's row r is
+              ``sum(sizes[:l]) + r``), grouped by tile: tile t's entries
+              are positions ``[tile_off[t], tile_off[t + 1])``; trashbin
+              entries and entries past a used head follow ``tile_off[T]``
+              with a sentinel row past every row
+    order:    (M,) int32 — position j holds entry ``order[j]`` of the
+              levels' entries concatenated
+    tile_off: (T + 1,) int32 — tile t covers rows ``[k tb, (k + 1) tb)`` of
+              the used head of its level (tiles numbered level by level)
+    dropped:  () int64 — entries past a used head (trashbin rows excluded)
+    sizes, n_used, tb: the per-level table rows, used heads and rows per
+              tile it was built for
+
+    The plain version (CPU tensors) sorts the entries by row, stably: one
+    valid grouping.  The kernel's (CUDA tensors) leaves the order inside a
+    tile to its atomics.
     """
 
     rows: torch.Tensor
     order: torch.Tensor
+    tile_off: torch.Tensor
     dropped: torch.Tensor
     sizes: Tuple[int, ...]
     n_used: Tuple[int, ...]
+    tb: int
 
 
 def entry_prep(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
-               n_used: Optional[Sequence[int]] = None) -> EntryPrep:
+               n_used: Optional[Sequence[int]], dim: int) -> EntryPrep:
     """The :class:`EntryPrep` of per-level corner rows ``rows_list[l]`` (any
-    shape, int32/int64) for tables of ``sizes[l]`` rows with used heads
-    ``n_used`` (None = whole tables).  The port's counterpart of
-    ``entry_prep_lanes`` / ``entry_prep_multi`` (adam_kernel.py:940, :307):
-    the card needs no tile windows, so it is the sort alone."""
+    shape, int32/int64) for tables of ``sizes[l]`` rows of width ``dim``
+    with used heads ``n_used`` (None = whole tables).  The port's
+    counterpart of ``entry_prep_lanes`` / ``entry_prep_multi``
+    (adam_kernel.py:940, :307)."""
     return window_prep(entry_prep_stack([r.reshape(1, -1) for r in rows_list],
-                                        sizes, n_used), 0)
+                                        sizes, n_used, dim), 0)
 
 
 def entry_prep_stack(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
-                     n_used: Optional[Sequence[int]] = None) -> EntryPrep:
+                     n_used: Optional[Sequence[int]], dim: int) -> EntryPrep:
     """:func:`entry_prep` of W batches at once: ``rows_list[l]`` is level
     l's rows of every batch, ``(W, ...)``.  Returns an EntryPrep whose rows
-    and order are ``(W, M)`` and dropped ``(W,)``; :func:`window_prep` takes
-    batch w's.  One batched sort for all W (the trainer's epoch windows)."""
+    and order are ``(W, M)``, tile_off ``(W, T + 1)`` and dropped ``(W,)``;
+    :func:`window_prep` takes batch w's.  On CUDA tensors one launch of
+    csrc/entry_prep.cu (three kernels) after one memset, for all W (the
+    trainer's epoch windows); on CPU tensors :func:`entry_prep_stack_plain`."""
     sizes = tuple(int(c) for c in sizes)
     n_used = sizes if n_used is None else tuple(int(n) for n in n_used)
     if len(rows_list) != len(sizes) or len(n_used) != len(sizes):
         raise ValueError("one rows tensor, size and used head per level")
+    if not 1 <= len(sizes) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} levels supported, got {len(sizes)}")
     if any(not 0 <= n <= C for n, C in zip(n_used, sizes)):
         raise ValueError(f"n_used {n_used} must lie in [0, C_l] for sizes {sizes}")
     if sum(sizes) >= _SENTINEL:
         raise ValueError("tables of 2**31 - 1 rows or more in all are not supported")
     device = rows_list[0].device
     W = rows_list[0].shape[0]
-    rows_g = []
-    dropped = torch.zeros(W, dtype=torch.int64, device=device)
-    off = 0
-    for rows, C, nu in zip(rows_list, sizes, n_used):
+    for rows in rows_list:
         if rows.dtype not in (torch.int32, torch.int64):
             raise TypeError("rows must be int32/int64")
         if rows.device != device or rows.shape[0] != W:
             raise ValueError("all levels' rows must lie on one device, W batches each")
+    tb = tile_rows(dim)
+    if device.type == "cpu":
+        return entry_prep_stack_plain(rows_list, sizes, n_used, tb)
+    if device.type != "cuda":
+        raise ValueError(f"entry_prep runs on cuda (or cpu), not {device}")
+    return _prep_launch(rows_list, sizes, n_used, tb)
+
+
+def entry_prep_stack_plain(rows_list, sizes, n_used, tb: int) -> EntryPrep:
+    """The plain torch version of :func:`entry_prep_stack` (any device): the
+    rows globalised (sentinel for trashbin and out-of-head entries), a
+    stable sort, and each tile's first position by ``searchsorted``."""
+    device = rows_list[0].device
+    W = rows_list[0].shape[0]
+    rows_g = []
+    dropped = torch.zeros(W, dtype=torch.int64, device=device)
+    bounds = []
+    off = 0
+    for rows, C, nu in zip(rows_list, sizes, n_used):
         r = rows.reshape(W, -1).to(torch.int64)
         trash = r == C - 1
         inside = (r >= 0) & (r < nu) & ~trash
         dropped = dropped + (~inside & ~trash).sum(dim=1)
         rows_g.append(torch.where(inside, r + off, _SENTINEL).to(torch.int32))
+        bounds.append(torch.arange(0, nu, tb, dtype=torch.int64, device=device) + off)
         off += C
     rows_s, order = torch.sort(torch.cat(rows_g, dim=1), dim=1, stable=True)
-    return EntryPrep(rows_s.contiguous(), order.to(torch.int32), dropped, sizes, n_used)
+    bounds.append(torch.tensor([_SENTINEL], dtype=torch.int64, device=device))
+    b = torch.cat(bounds).to(torch.int32).expand(W, -1).contiguous()
+    tile_off = torch.searchsorted(rows_s, b).to(torch.int32)
+    return EntryPrep(rows_s.contiguous(), order.to(torch.int32), tile_off, dropped, sizes,
+                     n_used, tb)
+
+
+def _prep_launch(rows_list, sizes, n_used, tb) -> EntryPrep:
+    """csrc/entry_prep.cu on CUDA rows (counted under ``entry_prep``)."""
+    lib = cuda_build.load("entry_prep")
+    fn = lib.entry_prep
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+                       + [ctypes.POINTER(ctypes.c_longlong)] * 3
+                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 7)
+        fn.restype = ctypes.c_int
+    device = rows_list[0].device
+    W = rows_list[0].shape[0]
+    L = len(sizes)
+    rows = [r.reshape(W, -1) for r in rows_list]
+    if any(not r.is_contiguous() for r in rows):
+        raise ValueError("rows must be contiguous")
+    ent_off = [0]
+    for r in rows:
+        ent_off.append(ent_off[-1] + r.shape[1])
+    M = ent_off[-1]
+    if M >= _SENTINEL or W > 65535:
+        raise ValueError("at most 2**31 - 2 entries per batch and 65,535 batches")
+    tile_lo, T = _tiles(n_used, tb)
+    row_off = [sum(sizes[:l]) for l in range(L)]
+    counts = torch.zeros((W, T + 2), dtype=torch.int32, device=device)
+    rank = torch.empty((W, M), dtype=torch.int32, device=device)
+    tile_off = torch.empty((W, T + 1), dtype=torch.int32, device=device)
+    rows_out = torch.empty((W, M), dtype=torch.int32, device=device)
+    order = torch.empty((W, M), dtype=torch.int32, device=device)
+    dropped = torch.empty(W, dtype=torch.int64, device=device)
+    rows64 = sum(1 << l for l, r in enumerate(rows) if r.dtype == torch.int64)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn((ctypes.c_void_p * L)(*[r.data_ptr() for r in rows]), rows64,
+                 (ctypes.c_longlong * (L + 1))(*ent_off), L,
+                 (ctypes.c_longlong * L)(*sizes), (ctypes.c_longlong * L)(*n_used),
+                 (ctypes.c_longlong * L)(*row_off), (ctypes.c_int * L)(*tile_lo), tb, T, W,
+                 counts.data_ptr(), rank.data_ptr(), tile_off.data_ptr(),
+                 rows_out.data_ptr(), order.data_ptr(), dropped.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"entry_prep kernel launch failed: CUDA error {err}")
+    LAUNCHES["entry_prep"] += 1
+    return EntryPrep(rows_out, order, tile_off, dropped, tuple(sizes), tuple(n_used), tb)
 
 
 def window_prep(pre: EntryPrep, w: int) -> EntryPrep:
     """Batch ``w``'s EntryPrep of a stack (:func:`entry_prep_stack`)."""
-    return EntryPrep(pre.rows[w], pre.order[w], pre.dropped[w], pre.sizes, pre.n_used)
+    return EntryPrep(pre.rows[w], pre.order[w], pre.tile_off[w], pre.dropped[w], pre.sizes,
+                     pre.n_used, pre.tb)
 
 
-def _prep_for(pre, rows_list, sizes, n_used, device):
+def _prep_for(pre, rows_list, sizes, n_used, D, device):
     """``pre``, checked against this call, or a fresh one."""
     M = sum(int(r.numel()) for r in rows_list)
     if pre is None:
         if any(r.device != device for r in rows_list):
             raise ValueError("entries must lie on the tables' device")
-        return entry_prep(rows_list, sizes, n_used)
-    if (pre.sizes != tuple(sizes) or pre.n_used != tuple(n_used)
-            or pre.rows.shape[0] != M or pre.rows.device != device):
+        return entry_prep(rows_list, sizes, n_used, D)
+    if (pre.sizes != tuple(sizes) or pre.n_used != tuple(n_used) or pre.tb != tile_rows(D)
+            or pre.rows.shape != (M,) or pre.rows.device != device):
         raise ValueError(
-            f"pre was built for sizes {pre.sizes}, used heads {pre.n_used} and "
-            f"{pre.rows.shape[0]} entries on {pre.rows.device}; this step has "
-            f"{tuple(sizes)}, {tuple(n_used)}, {M} on {device}")
+            f"pre was built for sizes {pre.sizes}, used heads {pre.n_used}, tiles of "
+            f"{pre.tb} rows and {tuple(pre.rows.shape)} entries on {pre.rows.device}; this "
+            f"step has {tuple(sizes)}, {tuple(n_used)}, {tile_rows(D)}, {M} on {device}")
     return pre
 
 
 def _sorted_grads(pre: EntryPrep, g_list, D: int) -> torch.Tensor:
     """The levels' (…, D) float32 gradients concatenated, in ``pre``'s
-    order: (M, D), contiguous."""
+    order: (M, D), contiguous (the plain version's gather)."""
     gs = [g.reshape(-1, D) for g in g_list]
     for g in gs:
         if g.dtype != torch.float32:
@@ -254,6 +361,41 @@ def _sorted_grads(pre: EntryPrep, g_list, D: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ plain versions
+
+_U32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # Philox4x32 multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # Weyl key increments
+_SR_KEY = 0x53524E44  # the second key word of the rounding noise
+
+
+def _mulhilo(a: torch.Tensor, b: int):
+    """High and low 32-bit words of ``a * b`` for int64 ``a`` holding
+    uint32 values and a uint32 constant ``b``, without leaving int64."""
+    p1 = a * (b & 0xFFFF)  # < 2**48
+    p2 = a * (b >> 16)
+    s = p1 + ((p2 & 0xFFFF) << 16)
+    return (p2 >> 16) + (s >> 32), s & _U32
+
+
+def philox_noise16(seed: int, level: int, n: int, device="cpu") -> torch.Tensor:
+    """The kernel's 16-bit stochastic-rounding noise for elements ``[0, n)``
+    of level ``level`` (row-major), as int32: Philox4x32-10 with counter
+    (group lo, group hi, level, 0) and key (seed, 0x53524E44), one call per
+    group of 8 elements, element 8 k + j taking bits 16 (j & 1) of word
+    j >> 1 (csrc/fused_adam.cu)."""
+    k = torch.arange(-(-int(n) // 8), dtype=torch.int64, device=device)
+    c0, c1 = k & _U32, k >> 32
+    c2 = torch.full_like(k, int(level) & _U32)
+    c3 = torch.zeros_like(k)
+    k0, k1 = int(seed) & _U32, _SR_KEY
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    words = torch.stack((c0, c1, c2, c3), dim=1)  # (groups, 4)
+    halves = torch.stack((words & 0xFFFF, words >> 16), dim=2)  # (groups, 4, 2)
+    return halves.reshape(-1)[: int(n)].to(torch.int32)
 
 
 def sr_round_bf16_plain(x: torch.Tensor, noise16: torch.Tensor) -> torch.Tensor:
@@ -276,29 +418,26 @@ def fused_adam_multi_plain(ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
                            pre: Optional[EntryPrep] = None, noise16=None):
     """The plain torch version of :func:`fused_adam_multi` (any device).
 
-    With bf16 p the stochastic rounding draws its noise from a
-    ``torch.Generator`` seeded with ``sr_seed`` (one draw over each level's
-    whole table, so an element's bits do not depend on ``n_used``), or takes
-    ``noise16[l]`` (level l's 16-bit noise, ``C_l * D`` elements in row-major
-    order) from the caller: a seam that lets a test feed the JAX package's
-    bits."""
+    Rounds each operation once, as the kernel does: the bias corrections
+    divide as 0-dim tensors (a Python scalar divisor becomes a multiply by
+    its reciprocal on CUDA tensors) and the square root is taken in
+    float64.  With bf16 p the stochastic rounding takes the kernel's bits,
+    :func:`philox_noise16` keyed by ``sr_seed``, or ``noise16[l]`` (level
+    l's 16-bit noise, ``C_l * D`` elements in row-major order) from the
+    caller: a seam that lets a test feed the JAX package's bits."""
     variant = _check_tables(ps, ms, vs)
     _per_level(ps, rows_list, g_list)
     sizes, n_used, offs, lrs = _levels(ps, n_used, lr, lr_scales)
     if variant == "bf16p" and sr_seed is None:
         raise ValueError("bf16 tables need a per-step sr_seed")
     device, D = ps[0].device, ps[0].shape[1]
-    pre = _prep_for(pre, rows_list, sizes, n_used, device)
+    pre = _prep_for(pre, rows_list, sizes, n_used, D, device)
     gs = _sorted_grads(pre, g_list, D)
     if grads_bf16:
         gs = gs.to(torch.bfloat16).to(torch.float32)
-    gen = None
-    if variant == "bf16p" and noise16 is None:
-        gen = torch.Generator(device=device).manual_seed(int(sr_seed))
+    bc1_t, bc2_t = (torch.tensor(float(b), dtype=torch.float32, device=device)
+                    for b in (bc1, bc2))
     for l, (p, m, v, nu, off, lr_l) in enumerate(zip(ps, ms, vs, n_used, offs, lrs)):
-        if gen is not None:  # drawn for every level, used head or not
-            noise = torch.randint(0, 1 << 16, p.shape, generator=gen, device=device,
-                                  dtype=torch.int32)
         if nu == 0:
             continue
         sel = (pre.rows >= off) & (pre.rows < off + nu)
@@ -306,11 +445,16 @@ def fused_adam_multi_plain(ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
             0, (pre.rows[sel] - off).to(torch.int64), gs[sel])
         m_new = b1 * m[:nu].float() + (1.0 - b1) * gl
         v_new = b2 * v[:nu].float() + (1.0 - b2) * gl * gl
-        p_new = p[:nu].float() - lr_l * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        # the root in float64, rounded once: the correctly rounded float32 root
+        # (torch's float32 sqrt on the CPU may miss it by an ulp)
+        root = torch.sqrt((v_new / bc2_t).double()).float()
+        p_new = p[:nu].float() - lr_l * (m_new / bc1_t) / (root + eps)
         if variant == "bf16p":
             if noise16 is not None:
-                noise = noise16[l].reshape(-1)[: p.numel()].reshape(p.shape)
-            p[:nu] = sr_round_bf16_plain(p_new, noise[:nu])
+                noise = noise16[l].reshape(-1)[: nu * D]
+            else:
+                noise = philox_noise16(sr_seed, l, nu * D, device)
+            p[:nu] = sr_round_bf16_plain(p_new, noise.reshape(nu, D))
         else:
             p[:nu] = p_new
         m[:nu] = m_new  # to bf16 moments: round to nearest even
@@ -331,14 +475,41 @@ def fused_adam_plain(p, m, v, rows, grads, lr, bc1, bc2, n_used=None,
 # ------------------------------------------------------------------ kernel
 
 
-def _launch(variant, ps, ms, vs, rows_s, g_s, n_used, offs, lrs, b1, b2, bc1, bc2,
+def _entry_offsets(g_list, rows_list, D, device):
+    """The kernel reads each level's gradients in place: float32, on the
+    tables' device, contiguous, one (D,) row per entry.  Returns each
+    level's first entry in the concatenation."""
+    ent_off = [0]
+    for g, r in zip(g_list, rows_list):
+        if g.dtype != torch.float32:
+            raise TypeError("grads must be float32")
+        if g.device != device or r.device != device:
+            raise ValueError("entries must lie on the tables' device")
+        if not g.is_contiguous() or g.numel() != r.numel() * D:
+            raise ValueError(f"grads must be contiguous with D = {D} values per entry row")
+        ent_off.append(ent_off[-1] + r.numel())
+    return ent_off[:-1]
+
+
+def _check_aligned(named):
+    for name, ts in named:
+        for t in ts:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
+                                 "reads it 16 bytes at a time); got a view at "
+                                 f"{t.data_ptr() % 16} bytes past one")
+
+
+def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
             eps, grads_bf16=False, seed=0):
-    """One launch of csrc/fused_adam.cu's ``variant`` on sorted entries (no
-    counting).  Returns whether a kernel ran (some used head is non-empty)."""
+    """One launch of csrc/fused_adam.cu's ``variant`` on ``pre``'s binned
+    entries (no counting).  Returns whether a kernel ran (some used head is
+    non-empty)."""
     lib = cuda_build.load("fused_adam")
     fn = getattr(lib, _C_ENTRY[variant])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.c_void_p] * 2
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 4
+                       + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 3
                        + [ctypes.POINTER(ctypes.c_longlong)] * 2
                        + [ctypes.POINTER(ctypes.c_float)]
@@ -352,8 +523,9 @@ def _launch(variant, ps, ms, vs, rows_s, g_s, n_used, offs, lrs, b1, b2, bc1, bc
 
     with torch.cuda.device(ps[0].device):
         stream = torch.cuda.current_stream(ps[0].device).cuda_stream
-        err = fn(ptrs(ps), ptrs(ms), ptrs(vs), rows_s.data_ptr(), g_s.data_ptr(),
-                 rows_s.shape[0], ps[0].shape[1], L,
+        err = fn(ptrs(ps), ptrs(ms), ptrs(vs), ptrs(gs), (ctypes.c_longlong * L)(*ent_off),
+                 pre.rows.data_ptr(), pre.order.data_ptr(), pre.tile_off.data_ptr(),
+                 ps[0].shape[1], pre.tb, L,
                  (ctypes.c_longlong * L)(*offs), (ctypes.c_longlong * L)(*n_used),
                  (ctypes.c_float * L)(*lrs), b1, b2, 1.0 - b1, 1.0 - b2,
                  float(bc1), float(bc2), eps, int(bool(grads_bf16)),
@@ -367,8 +539,8 @@ def _launch(variant, ps, ms, vs, rows_s, g_s, n_used, offs, lrs, b1, b2, bc1, bc
 def _step(entry, ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
           n_used, b1, b2, eps, grads_bf16, sr_seed, pre, noise16):
     """Both entry points: checks, then the plain version for CPU tensors or
-    one kernel launch for CUDA tensors (counted under ``entry`` and the
-    variant)."""
+    the prep (unless ``pre`` is given) and one kernel launch for CUDA
+    tensors (counted under ``entry`` and the variant)."""
     variant = _check_tables(ps, ms, vs)
     device = ps[0].device
     if device.type == "cpu":
@@ -384,9 +556,11 @@ def _step(entry, ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
                          "stochastic-rounding bits from Philox keyed by sr_seed")
     _per_level(ps, rows_list, g_list)
     sizes, n_used, offs, lrs = _levels(ps, n_used, lr, lr_scales)
-    pre = _prep_for(pre, rows_list, sizes, n_used, device)
-    g_s = _sorted_grads(pre, g_list, ps[0].shape[1])
-    if _launch(variant, ps, ms, vs, pre.rows, g_s, n_used, offs, lrs, b1, b2, bc1, bc2,
+    D = ps[0].shape[1]
+    ent_off = _entry_offsets(g_list, rows_list, D, device)
+    _check_aligned((("p", ps), ("m", ms), ("v", vs), ("grads", g_list)))
+    pre = _prep_for(pre, rows_list, sizes, n_used, D, device)
+    if _launch(variant, ps, ms, vs, g_list, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
                eps, grads_bf16, 0 if sr_seed is None else sr_seed):
         LAUNCHES[entry + _SUFFIX[variant]] += 1
     return pre.dropped

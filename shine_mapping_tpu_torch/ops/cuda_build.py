@@ -35,15 +35,16 @@ def _nvcc() -> str:
                        "(CUDA toolkit) on the machine with the card")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` (if the library is missing or older than
-    the source) and return the library path."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
+def build(name: str, csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR) -> str:
+    """Compile ``<csrc_dir>/<name>.cu`` (if the library is missing or older
+    than the source) into ``<build_dir>`` and return the library path."""
+    src = os.path.join(csrc_dir, f"{name}.cu")
+    lib_path = os.path.join(build_dir, f"lib{name}.so")
+    key = os.path.relpath(os.path.join(csrc_dir, name), CSRC_DIR)  # BUILD_INFO's key
     if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= os.path.getmtime(src):
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached"})
+        BUILD_INFO.setdefault(key, {"seconds": 0.0, "log": "cached"})
         return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
@@ -51,24 +52,26 @@ def build(name: str) -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                        "log": (res.stdout + res.stderr).strip()}
+    BUILD_INFO[key] = {"seconds": time.perf_counter() - t0,
+                       "log": (res.stdout + res.stderr).strip()}
     return lib_path
 
 
-def build_all(names) -> None:
+def build_all(names, csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR) -> None:
     """Build the given kernel sources at once, one ``nvcc`` each, all
     started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        for f in [pool.submit(build, n) for n in names]:
+        for f in [pool.submit(build, n, csrc_dir, build_dir) for n in names]:
             f.result()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+def load(name: str, csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR) -> ctypes.CDLL:
+    """The loaded library of ``<csrc_dir>/<name>.cu``, built at first use
+    (``BUILD_INFO`` keys it by its path under ``csrc/`` without ``.cu``)."""
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(build(name))
-        return _libs[name]
+        key = os.path.join(csrc_dir, name)
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(build(name, csrc_dir, build_dir))
+        return _libs[key]

@@ -341,11 +341,12 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
     if s.sort_batch:
         idx = torch.sort(idx, dim=1).values
     rows = [pre_lookups[i][0][idx] for i in range(len(sizes))]  # (W, bs, 8)
+    D = int(feat_shapes[0][1])
     if fused:
-        preps = [adam_kernel.entry_prep_stack(rows, sizes, n_used)]
+        preps = [adam_kernel.entry_prep_stack(rows, sizes, n_used, D)]
     else:
-        preps = [adam_kernel.entry_prep_stack([r], [C], [nu])
-                 for r, C, nu in zip(rows, sizes, n_used)]
+        preps = [adam_kernel.entry_prep_stack([r], [C], [nu], int(sh[1]))
+                 for r, C, nu, sh in zip(rows, sizes, n_used, feat_shapes)]
     dropped = sum(p.dropped for p in preps)
     bad = torch.nonzero(dropped).reshape(-1)
     if bad.numel():
@@ -356,16 +357,21 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
     return BatchWindows(idx=idx, fused=fused, preps=preps)
 
 
-def estimate_windows_bytes(n_valid: int, settings: TrainSettings) -> int:
+def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes) -> int:
     """Device bytes :func:`precompute_batch_windows` holds for a run (JAX
     ``estimate_windows_bytes``, trainer.py:1807, on the port's layout): per
     window the int64 indices and, per entry (bs x 8 corners x L levels),
-    an int32 sorted row and an int32 order, plus an int64 dropped count per
-    window and prep.  Both layouts hold the same entries."""
+    an int32 row and an int32 order, plus per prep an int64 dropped count
+    and an int32 offset per tile of the update kernel and one more
+    (``feat_shapes``: the tables' (C_l, D)).  Counted for the per-level
+    layout, whose L preps hold L - 1 tile offsets more than the fused one."""
     s = settings
     W = max(-(int(n_valid) // -s.bs), 1)
     L = len(s.levels)
-    return W * (8 * s.bs + 8 * s.bs * 8 * L + 8 * L)
+    sizes = [int(C) for C, _ in feat_shapes]
+    n_used = list(s.n_used) if s.n_used is not None else sizes
+    tiles = sum(-(-nu // adam_kernel.tile_rows(D)) for nu, (_, D) in zip(n_used, feat_shapes))
+    return W * (8 * s.bs + 8 * s.bs * 8 * L + 8 * L + 4 * (tiles + L))
 
 
 def _gather_batch(pool, idx):

@@ -420,7 +420,7 @@ def test_precomputed_prep_gives_the_live_step(variant):
     kw = dict(grads_bf16=variant != "f32", sr_seed=5 if variant == "bf16p" else None)
     live, given = tables(), tables()
     tak.fused_adam_multi(*live, rows, grads, LR, BC1, BC2, (1.0, 0.5), n_used, **kw)
-    pre = tak.entry_prep(rows, sizes, n_used)
+    pre = tak.entry_prep(rows, sizes, n_used, D)
     tak.fused_adam_multi(*given, rows, grads, LR, BC1, BC2, (1.0, 0.5), n_used,
                          pre=pre, **kw)
     for a, b in zip(live, given):
@@ -432,7 +432,7 @@ def test_precomputed_prep_gives_the_live_step(variant):
                        BC2, n_used[0], grads_bf16=kw["grads_bf16"])
         tak.fused_adam(given[0][0], given[1][0], given[2][0], rows[0], grads[0], LR,
                        BC1, BC2, n_used[0], grads_bf16=kw["grads_bf16"],
-                       pre=tak.entry_prep(rows[:1], sizes[:1], n_used[:1]))
+                       pre=tak.entry_prep(rows[:1], sizes[:1], n_used[:1], D))
         for a, b in zip(live, given):
             assert torch.equal(a[0], b[0])
     with pytest.raises(ValueError, match="pre was built"):  # a prep of other heads
@@ -460,3 +460,150 @@ def test_bf16_gates():
         tak.fused_adam_multi([p, p.clone()], [p.clone(), b.clone()],
                              [p.clone(), b.clone()], [rows] * 2, [g] * 2, LR, BC1, BC2,
                              [1.0, 1.0])
+
+
+# ------------------------------------------------------------------ entry prep and SR noise
+
+
+def _prep_numpy(rows_list, sizes, n_used, tb):
+    """An independent numpy transcription of the prep for one batch: global
+    rows (sentinel for trashbin and out-of-head entries), a stable argsort,
+    each tile's first position, the dropped count."""
+    sentinel = 2 ** 31 - 1
+    keys, dropped, bounds, off = [], 0, [], 0
+    for rows, C, nu in zip(rows_list, sizes, n_used):
+        r = np.asarray(rows, np.int64).reshape(-1)
+        trash = r == C - 1
+        inside = (r >= 0) & (r < nu) & ~trash
+        dropped += int((~inside & ~trash).sum())
+        keys.append(np.where(inside, r + off, sentinel))
+        bounds += [off + k for k in range(0, nu, tb)]
+        off += C
+    keys = np.concatenate(keys)
+    order = np.argsort(keys, kind="stable")
+    srt = keys[order]
+    tile_off = [int(np.searchsorted(srt, b)) for b in bounds] + [int((srt < sentinel).sum())]
+    return srt, order, np.array(tile_off), dropped
+
+
+def test_entry_prep_plain_matches_numpy():
+    """The prep's plain version (the wrapper's prep on CPU tensors, and the
+    card prep's plain version): sentinel rows, stable order, tile offsets
+    and dropped count as an independent numpy transcription, on entries
+    with trashbin rows, rows past a used head, negative rows, int32 and
+    int64 rows and a level with an empty used head; batch by batch of a
+    stack."""
+    rng = np.random.default_rng(17)
+    sizes, n_used, W = (4096, 2048, 1024), (3001, 0, 1024), 3
+    tb = tak.tile_rows(D)
+    assert tb == 256 and tak.tile_rows(4) == 512 and tak.tile_rows(16) == 128
+    assert tak.tile_rows(3) == 680 and tak.tile_rows(2048) == 8
+    stack = []
+    for l, (C, nu) in enumerate(zip(sizes, n_used)):
+        r = rng.integers(0, max(nu, 1), (W, 700))
+        r[:, :5] = r[:, 5:10]  # duplicates
+        r[rng.random(r.shape) < 0.2] = C - 1  # trashbin
+        r[:, 10:13] = [nu + 7, -1, C - 2]  # past the head, negative, last real row
+        stack.append(torch.from_numpy(r.astype(np.int64 if l == 1 else np.int32)))
+    pre = tak.entry_prep_stack(stack, sizes, n_used, D)
+    assert pre.tb == tb and tuple(pre.rows.shape) == (W, 2100)
+    for w in range(W):
+        want = _prep_numpy([s[w].numpy() for s in stack], sizes, n_used, tb)
+        one = tak.window_prep(pre, w)
+        np.testing.assert_array_equal(one.rows.numpy(), want[0])
+        np.testing.assert_array_equal(one.order.numpy(), want[1])
+        np.testing.assert_array_equal(one.tile_off.numpy(), want[2])
+        assert int(one.dropped) == want[3] > 0
+        assert one.rows.dtype == one.order.dtype == one.tile_off.dtype == torch.int32
+    single = tak.entry_prep([s[1] for s in stack], sizes, n_used, D)
+    np.testing.assert_array_equal(single.order.numpy(), tak.window_prep(pre, 1).order.numpy())
+
+
+def _philox_numpy(seed, level, n):
+    """Philox4x32-10 (Salmon et al., SC'11) in numpy uint64: counter
+    (k lo, k hi, level, 0), key (seed, 0x53524E44), 16 bits per element."""
+    mask = np.uint64(0xFFFFFFFF)
+    k = np.arange((n + 7) // 8, dtype=np.uint64)
+    c = [k & mask, k >> np.uint64(32), np.full_like(k, level), np.zeros_like(k)]
+    key = [np.uint64(seed & 0xFFFFFFFF), np.uint64(0x53524E44)]
+    for _ in range(10):
+        p0 = np.uint64(0xD2511F53) * c[0]  # exact: < 2**64
+        p1 = np.uint64(0xCD9E8D57) * c[2]
+        c = [(p1 >> np.uint64(32)) ^ c[1] ^ key[0], p1 & mask,
+             (p0 >> np.uint64(32)) ^ c[3] ^ key[1], p0 & mask]
+        key = [(key[0] + np.uint64(0x9E3779B9)) & mask, (key[1] + np.uint64(0xBB67AE85)) & mask]
+    words = np.stack(c, axis=1)
+    halves = np.stack([words & np.uint64(0xFFFF), words >> np.uint64(16)], axis=2)
+    return halves.reshape(-1)[:n].astype(np.int64)
+
+
+def test_philox_noise16_matches_numpy_transcription():
+    """The kernel's rounding noise in torch equals an independent numpy
+    transcription of Philox4x32-10, across a 2**32 group boundary of the
+    seed's key words, for several levels and a length that ends mid-group;
+    the bits are 16-bit and look uniform."""
+    for seed, level, n in ((0, 0, 8), (7, 0, 1003), (123456789, 2, 4099), (2 ** 32 + 5, 1, 64)):
+        got = tak.philox_noise16(seed, level, n).numpy()
+        np.testing.assert_array_equal(got, _philox_numpy(seed, level, n))
+    x = tak.philox_noise16(3, 1, 1 << 16).numpy()
+    assert x.min() >= 0 and x.max() < 1 << 16
+    assert abs(x.mean() / 65535 - 0.5) < 0.01
+    # the transcription's rounds give Random123's known answer (kat_vectors,
+    # philox4x32_10, zero counter and key)
+    assert _philox_kat() == (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)
+
+
+def _philox_kat():
+    """Philox4x32-10 of a zero counter under a zero key, in Python ints."""
+    mask = 0xFFFFFFFF
+    c, k = [0, 0, 0, 0], [0, 0]
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & mask, (p0 >> 32) ^ c[3] ^ k[1], p0 & mask]
+        k = [(k[0] + 0x9E3779B9) & mask, (k[1] + 0xBB67AE85) & mask]
+    return tuple(c)
+
+
+def test_bf16_params_plain_rounds_with_the_kernel_noise():
+    """With bf16 p and no ``noise16`` the plain step takes
+    ``philox_noise16(sr_seed, level, ...)``: handed those bits through the
+    ``noise16`` seam it gives the same tables bit for bit, and the bits
+    depend on the seed."""
+    rng = np.random.default_rng(18)
+    sizes, n_used = (2048, 1024), (1500, 1024)
+    levels = [_level(rng, C, nu, 512) for C, nu in zip(sizes, n_used)]
+    rows, grads = _t(*[lv[3] for lv in levels]), _t(*[lv[4] for lv in levels])
+
+    def step(seed, noise=None):
+        tabs = [[torch.from_numpy(lv[k].copy()).bfloat16() for lv in levels] for k in range(3)]
+        tak.fused_adam_multi_plain(*tabs, rows, grads, LR, BC1, BC2, (1.0, 0.5), n_used,
+                                   grads_bf16=True, sr_seed=seed, noise16=noise)
+        return tabs
+
+    noise = [tak.philox_noise16(9, l, C * D) for l, C in enumerate(sizes)]
+    for a, b in zip(step(9), step(9, noise)):
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+    assert not torch.equal(step(9)[0][0].view(torch.int16), step(10)[0][0].view(torch.int16))
+
+
+def test_plain_step_rounds_each_operation_once():
+    """On rows with at most one entry the plain f32 step equals a numpy
+    float32 transcription that rounds every product, quotient, root and sum
+    once (what the kernel computes with __fmul_rn and friends), so the card
+    can hold the kernel bit for bit against it there."""
+    rng = np.random.default_rng(19)
+    C, nu = 4096, 3000
+    p, m, v, _, _ = _level(rng, C, nu, 8)
+    rows = rng.permutation(nu)[:1500].astype(np.int32)  # unique rows
+    g = (rng.normal(size=(1500, D)) * 1e-3).astype(np.float32)
+    tabs = _t(p, m, v)
+    tak.fused_adam_plain(*tabs, torch.from_numpy(rows), torch.from_numpy(g), LR, BC1, BC2, nu)
+    f = np.float32
+    gl = np.zeros((nu, D), np.float32)
+    gl[rows] = g
+    m_new = f(0.9) * m[:nu] + f(1 - 0.9) * gl
+    v_new = f(0.99) * v[:nu] + (f(1 - 0.99) * gl) * gl
+    p_new = p[:nu] - (f(LR) * (m_new / f(BC1))) / (np.sqrt(v_new / f(BC2)) + f(1e-15))
+    for a, b in zip(tabs, (p_new, m_new, v_new)):
+        np.testing.assert_array_equal(a.numpy()[:nu], b)

@@ -7,7 +7,9 @@ machine without jax:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance rtol 1e-5, atol 1e-6: shared-memory atomics sum duplicate rows in
-another order than ``index_add_``, and nvcc contracts multiply-adds.
+another order than ``index_add_``.  The update kernel rounds every
+operation as torch does, so on rows with at most one entry it is held bit
+for bit against the plain version run on CPU copies.
 """
 
 import numpy as np
@@ -109,6 +111,159 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take(cuda_device):
         ak.fused_adam(p, p.clone(), p.clone(), rows.cpu(), g.cpu(), LR, BC1, BC2)
     with pytest.raises(ValueError):  # non-contiguous table
         ak.fused_adam(p.t().contiguous().t(), p.clone(), p.clone(), rows, g, LR, BC1, BC2)
+
+
+# ------------------------------------------------------------------ prep, widths, edges
+
+
+def _edge_inputs(rng, D, sizes, n_used, M, hot=3000):
+    """Tables and entries for the edge cases: level 0 has a hot row with
+    ``hot`` duplicate entries, every level ~20% trashbin entries (zero
+    gradients); a level with an empty used head gets trashbin entries
+    only."""
+    tabs = [[], [], []]
+    rows_l, g_l = [], []
+    for l, (C, nu) in enumerate(zip(sizes, n_used)):
+        for k, t in enumerate((rng.normal(0, 0.1, (C, D)), rng.normal(0, 0.01, (C, D)),
+                               np.abs(rng.normal(0, 1e-4, (C, D))))):
+            t = t.astype(np.float32)
+            if k:
+                t[nu:] = 0.0
+            tabs[k].append(t)
+        rows = rng.integers(0, max(nu, 1), M).astype(np.int32)
+        if l == 0 and hot:
+            rows[:hot] = nu // 2
+        trash = (rng.random(M) < 0.2) | (nu == 0)
+        rows[trash] = C - 1
+        g = rng.normal(0, 1e-3, (M, D)).astype(np.float32)
+        g[trash] = 0.0
+        rows_l.append(rows)
+        g_l.append(g)
+    return tabs, rows_l, g_l
+
+
+def _entries_per_row(rows, C, nu):
+    r = rows[(rows >= 0) & (rows < nu) & (rows != C - 1)]
+    return np.bincount(r, minlength=C)
+
+
+@pytest.mark.cuda
+def test_kernel_prep_matches_plain(cuda_device):
+    """csrc/entry_prep.cu against its plain version (the stable sort) on a
+    stack of 3 batches: the same tile offsets and dropped count, and in
+    each tile, and among the excluded entries, the same (row, entry)
+    pairs (the kernel leaves the order inside a tile to its atomics)."""
+    rng = np.random.default_rng(30)
+    sizes, n_used, W = (8192, 4096, 2048), (6001, 0, 2048), 3
+    stack = []
+    for C, nu in zip(sizes, n_used):
+        r = rng.integers(0, max(nu, 1), (W, 3000))
+        r[:, :2000] = r[:, :1]  # a hot row
+        r[(rng.random(r.shape) < 0.2) | (nu == 0)] = C - 1  # trashbin
+        r[:, 2000:2005] = nu + 5  # past the head: dropped
+        stack.append(torch.from_numpy(r.astype(np.int32)))
+    plain = ak.entry_prep_stack(stack, sizes, n_used, D)
+    before = ak.LAUNCHES["entry_prep"]
+    kern = ak.entry_prep_stack([s.to(cuda_device) for s in stack], sizes, n_used, D)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["entry_prep"] == before + 1
+    assert torch.equal(kern.tile_off.cpu(), plain.tile_off)
+    assert torch.equal(kern.dropped.cpu(), plain.dropped) and int(plain.dropped[0]) == 15
+    for w in range(W):
+        bounds = plain.tile_off[w].tolist() + [plain.rows.shape[1]]
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            got = sorted(zip(kern.rows[w, a:b].tolist(), kern.order[w, a:b].tolist()))
+            want = sorted(zip(plain.rows[w, a:b].tolist(), plain.order[w, a:b].tolist()))
+            assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D_", [3, 4, 8, 16])
+def test_f32_kernel_bit_equal_on_single_entry_rows(cuda_device, D_):
+    """f32 p/m/v at widths D 3, 4, 8, 16: used heads ending mid-tile (and,
+    for D 3 and 4, mid-group of 8 elements), a hot row with 3,000
+    duplicate entries, a level with an empty used head.  Against the plain
+    version run on CPU copies: bit-equal on every row with at most one
+    entry (the kernel rounds each operation as torch does), within rtol
+    1e-5, atol 1e-6 on the rest (atomics sum duplicates in another order);
+    headroom untouched."""
+    rng = np.random.default_rng(31)
+    sizes, n_used = (8192, 2048, 4096), (5001, 0, 3333)
+    tabs, rows_np, g_np = _edge_inputs(rng, D_, sizes, n_used, 6000)
+    cpu = [[torch.from_numpy(a.copy()) for a in lv] for lv in tabs]
+    ak.fused_adam_multi_plain(*cpu, [torch.from_numpy(r) for r in rows_np],
+                              [torch.from_numpy(g) for g in g_np], LR, BC1, BC2,
+                              (1.0, 0.5, 0.25), n_used)
+    kern = _on(tabs, cuda_device)
+    ak.fused_adam_multi(*kern, [torch.from_numpy(r).to(cuda_device) for r in rows_np],
+                        [torch.from_numpy(g).to(cuda_device) for g in g_np], LR, BC1, BC2,
+                        (1.0, 0.5, 0.25), n_used)
+    torch.cuda.synchronize()
+    for l, (C, nu) in enumerate(zip(sizes, n_used)):
+        single = _entries_per_row(rows_np[l], C, nu) <= 1
+        assert nu == 0 or single[:nu].mean() > 0.3
+        for k in range(3):
+            a, b = kern[k][l].cpu(), cpu[k][l]
+            assert torch.equal(a[torch.from_numpy(single)], b[torch.from_numpy(single)]), \
+                f"level {l} table {'pmv'[k]}: rows with at most one entry differ"
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            np.testing.assert_array_equal(a.numpy()[nu:], tabs[k][l][nu:])
+
+
+@pytest.mark.cuda
+def test_bf16p_kernel_bit_equal_to_plain_with_philox_noise(cuda_device):
+    """bf16 p/m/v with stochastic rounding: the plain version on CPU copies
+    rounds with ``philox_noise16`` (the kernel's keying by seed, level and
+    element, unchanged from the parent kernel), so p, m and v are bit-equal
+    to the kernel's on every row with at most one entry, and another seed
+    gives other bits."""
+    rng = np.random.default_rng(32)
+    sizes, n_used = (8192, 4096), (6001, 4096)
+    tabs, rows_np, g_np = _edge_inputs(rng, D, sizes, n_used, 4096)
+    base = [[torch.from_numpy(a).bfloat16() for a in lv] for lv in tabs]
+    rows_c = [torch.from_numpy(r) for r in rows_np]
+    g_c = [torch.from_numpy(g) for g in g_np]
+    cpu = [[t.clone() for t in lv] for lv in base]
+    ak.fused_adam_multi_plain(*cpu, rows_c, g_c, LR, BC1, BC2, (1.0, 0.5), n_used,
+                              grads_bf16=True, sr_seed=41)
+
+    def run(seed):
+        t = [[x.to(cuda_device) for x in lv] for lv in base]
+        ak.fused_adam_multi(*t, [r.to(cuda_device) for r in rows_c],
+                            [g.to(cuda_device) for g in g_c], LR, BC1, BC2, (1.0, 0.5),
+                            n_used, grads_bf16=True, sr_seed=seed)
+        return t
+
+    kern, other = run(41), run(42)
+    torch.cuda.synchronize()
+    for l, (C, nu) in enumerate(zip(sizes, n_used)):
+        single = torch.from_numpy(_entries_per_row(rows_np[l], C, nu) <= 1)
+        for k in range(3):
+            a, b = kern[k][l].cpu().view(torch.int16), cpu[k][l].view(torch.int16)
+            assert torch.equal(a[single], b[single]), f"level {l} table {'pmv'[k]}"
+        p, q = kern[0][l][:nu].view(torch.int16), other[0][l][:nu].view(torch.int16)
+        assert float((p != q).float().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_misaligned_views_raise(cuda_device):
+    """A table or gradient view that does not start on a 16-byte boundary
+    is refused before any launch (the kernel reads 16 bytes at a time)."""
+    C = 1024
+    flat = torch.zeros(C * D + 4, device=cuda_device)
+    p = flat[4:].view(C, D)  # 16 bytes in: aligned
+    bad = flat[1:C * D + 1].view(C, D)  # 4 bytes in
+    rows = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    g = torch.zeros(8, D, device=cuda_device)
+    ak.fused_adam(p, torch.zeros_like(p), torch.zeros_like(p), rows, g, LR, BC1, BC2)
+    for tabs in ((bad, torch.zeros_like(p), torch.zeros_like(p)),
+                 (p, bad, torch.zeros_like(p)), (p, torch.zeros_like(p), bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ak.fused_adam(*tabs, rows, g, LR, BC1, BC2)
+    gflat = torch.zeros(8 * D + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        ak.fused_adam(p, torch.zeros_like(p), torch.zeros_like(p), rows,
+                      gflat[1:].view(8, D), LR, BC1, BC2)
 
 
 # ------------------------------------------------------------------ bf16 modes
@@ -242,7 +397,7 @@ def test_kernel_pre_matches_live_prep_and_bf16_gates(cuda_device):
     tabs, rows_l, g_l = _tables_and_entries(rng, sizes, n_used, 4096, cuda_device)
     live, given = _on(tabs, cuda_device), _on(tabs, cuda_device)
     ak.fused_adam_multi(*live, rows_l, g_l, LR, BC1, BC2, (1.0, 0.5), n_used)
-    pre = ak.entry_prep(rows_l, sizes, n_used)
+    pre = ak.entry_prep(rows_l, sizes, n_used, D)
     ak.fused_adam_multi(*given, rows_l, g_l, LR, BC1, BC2, (1.0, 0.5), n_used, pre=pre)
     torch.cuda.synchronize()
     for a, b in zip(live, given):  # shared-memory atomics: sum order varies

@@ -357,9 +357,9 @@ def test_precompute_batch_windows_partitions_the_pool(worlds):
     assert len(win.preps) == 1 and len(per.preps) == len(s.levels)
     assert tuple(win.preps[0].rows.shape) == (W, s.bs * 8 * len(s.levels))
     held = sum(t.numel() * t.element_size()
-               for p in per.preps for t in (p.rows, p.order, p.dropped))
+               for p in per.preps for t in (p.rows, p.order, p.tile_off, p.dropped))
     held += win.idx.numel() * win.idx.element_size()
-    assert held == trainer.estimate_windows_bytes(n, s)
+    assert held == trainer.estimate_windows_bytes(n, s, shapes)
     # each window's fused prep holds its levels' per-level preps, offset
     w = W - 1
     fused_rows = win.preps[0].rows[w]
