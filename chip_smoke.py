@@ -28,20 +28,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    without a precomputed entry prep, kernel alone), the plain version's, a
    PyTorch library yardstick where one call computes the same step
    (``index_add_`` + fused ``torch.optim.Adam``, f32 only) and the
-   bandwidth bound.  Where the parent commit's fused_adam.cu was copied to
+   bandwidth bound.  Where the parent commit's fused_adam.cu (with this
+   commit's C interface) was copied to
    ``shine_mapping_tpu_torch/csrc/build/parent/`` (git-ignored), its kernel
    is built too and timed beside the new one in turns (old, new, new, old)
    on the same inputs, and its stochastic-rounding bits compared;
 2b. kernel study: each kernel of the JAX round's kernel studies against
    its plain version at the study scripts' bench shapes (tables of
    4,194,304 rows of 8, 65,536 sorted entries; a (262,144, 128) table and
-   32,768 row jobs for K7), with its times, a library yardstick where one
-   call computes the same function (fused ``torch.optim.Adam`` over the
-   entries' or a zero gradient, ``torch.stack`` for K4's copy,
-   ``torch.add``, ``index_add_``), and its bound: the one-hot windowed
-   Adam (csrc/onehot_adam.cu) as K3 over exp_fused_adam.py's four (tb, w)
+   32,768 row jobs for K7), with its times (the wrapper's back to back, and
+   the kernel alone: 20 launches captured in a CUDA graph, the replay
+   timed), a library yardstick where one call computes the same function
+   (fused ``torch.optim.Adam`` over the entries' or a zero gradient,
+   ``torch.stack`` for K4's copy, ``torch.add``, ``index_add_``; timed both
+   ways too), and its bound: the one-hot windowed Adam
+   (csrc/onehot_adam.cu) as K3 over exp_fused_adam.py's four (tb, w)
    tilings, K4's six variants, K5 with a float32 and a bfloat16 copy of p;
    the Triton sweep (K6) and the tile read-modify-write (K7), bit-equal.
+   K7's data fits the L2, so it and ``index_add_`` are also timed cold
+   (256 MB written and read back before each launch).  Where the parent
+   commit's onehot_adam.cu and tile_rmw.cu were copied to
+   ``shine_mapping_tpu_torch/csrc/build/parent/``, their kernels are timed
+   alone beside the new ones in turns (K7 warm and cold).
    Then the five study programs of ``shine_mapping_tpu_torch.experiments`` run at
    their bench shapes (depth cut to 5 calls per timing), launch counts
    zeroed before and read after;
@@ -84,8 +92,9 @@ SOURCE = "shine_mapping_tpu_torch/csrc/fused_adam.cu"
 PREP_SOURCE = "shine_mapping_tpu_torch/csrc/entry_prep.cu"
 # the JAX package's entry prep of K2 (XLA: it sorts outside the Pallas kernel)
 PREP_TPU = "shine_mapping_tpu/ops/adam_kernel.py:307"
-# a git-ignored copy of the parent commit's fused_adam.cu, when the command
-# that measures the kernel old beside new puts one there
+# git-ignored copies of the parent commit's fused_adam.cu, onehot_adam.cu and
+# tile_rmw.cu, when the command that measures kernels old beside new puts
+# them there
 PARENT_DIR = os.path.join("shine_mapping_tpu_torch", "csrc", "build", "parent")
 DEVICE = "cuda"  # the card; a rehearsal on the CPU may set "cpu"
 K1_TPU = "shine_mapping_tpu/ops/adam_kernel.py:65"
@@ -112,6 +121,54 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Device time of one ``fn()`` alone: ``n`` calls captured in a CUDA
+    graph (ctypes launches on the current stream are captured too) and the
+    graph replayed ``reps`` times between two events, so no host time is in
+    it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # first call outside the capture (library loads, workspaces)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def cold_ms(fn, iters=50):
+    """Mean device time of one ``fn()`` that finds the 50 MB L2 cold: before
+    each call a 256 MB scratch buffer is written and then read back, so
+    neither ``fn``'s data nor a dirty line waiting to be written back is left
+    in the cache; events around the call alone."""
+    import torch
+
+    scratch = torch.empty(64 << 20, device=DEVICE)
+    fn()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(iters)]
+    for start, end in evs:
+        scratch.fill_(1.0)
+        scratch.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in evs) / iters
 
 
 # ----------------------------------------------------------------- phase 1
@@ -337,54 +394,23 @@ def _check_sr(p_out, p_exact, p0, n_used, p_again, p_other):
     return max_err, mean, sigma, worst
 
 
-def _parent_entry(variant):
-    """The parent commit's kernel, when its fused_adam.cu was copied to
-    PARENT_DIR (git-ignored; the command that measures old beside new puts
-    it there): the ctypes entry of ``variant`` with the parent's interface
-    (sorted rows, gathered gradients), else None."""
-    import ctypes
-
-    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+def _parent_lib():
+    """The parent commit's fused_adam.cu library, when the source was copied
+    to PARENT_DIR (git-ignored; the command that measures old beside new
+    puts it there) with this commit's interface, else None."""
     from shine_mapping_tpu_torch.ops import cuda_build
 
     if not os.path.exists(os.path.join(PARENT_DIR, "fused_adam.cu")):
         return None
-    lib = cuda_build.load("fused_adam", PARENT_DIR, PARENT_DIR)
-    fn = getattr(lib, ak._C_ENTRY[variant])
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 2
-                       + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_float] * 7
-                       + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    return cuda_build.load("fused_adam", PARENT_DIR, PARENT_DIR)
 
 
-def _parent_launch(fn, ps, ms, vs, rows_s, g_s, n_used, offs, lrs, bc1, bc2, grads_bf16,
-                   seed):
-    import ctypes
-
-    import torch
-
-    L = len(offs)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * L)(*[t.data_ptr() for t in ts])
-
-    err = fn(ptrs(ps), ptrs(ms), ptrs(vs), rows_s.data_ptr(), g_s.data_ptr(), rows_s.shape[0],
-             ps[0].shape[1], L, (ctypes.c_longlong * L)(*offs),
-             (ctypes.c_longlong * L)(*n_used), (ctypes.c_float * L)(*lrs), 0.9, 0.99,
-             1.0 - 0.9, 1.0 - 0.99, bc1, bc2, 1e-15, int(grads_bf16), seed,
-             torch.cuda.current_stream().cuda_stream)
-    assert err == 0, f"parent kernel launch failed: CUDA error {err}"
-
-
-def _in_turns(old, new):
+def _in_turns(old, new, timer=cuda_ms):
     """Device ms of ``old`` and ``new``, timed old, new, new, old."""
-    a = cuda_ms(old)
-    b = cuda_ms(new)
-    c = cuda_ms(new)
-    d = cuda_ms(old)
+    a = timer(old)
+    b = timer(new)
+    c = timer(new)
+    d = timer(old)
     return (a + d) / 2, (b + c) / 2
 
 
@@ -553,16 +579,12 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
             ak._launch(variant, *kern, gl, ent_off[:levels], pre, nu, offs[:levels], lrs,
                        0.9, 0.99, bc1, bc2, 1e-15, kw["grads_bf16"], seed)
 
-        parent = _parent_entry(variant)
+        parent = _parent_lib()
         t_parent = None
         if parent is not None:
-            old_pre = ak.window_prep(ak.entry_prep_stack_plain(
-                [r.reshape(1, -1) for r in rl], sizes_l, nu, tb), 0)
-            g_s = ak._sorted_grads(old_pre, gl, D)
-
             def old(ts=kern):
-                _parent_launch(parent, *ts, old_pre.rows, g_s, nu, offs[:levels], lrs, bc1,
-                               bc2, kw["grads_bf16"], seed)
+                ak._launch(variant, *ts, gl, ent_off[:levels], pre, nu, offs[:levels], lrs,
+                           0.9, 0.99, bc1, bc2, 1e-15, kw["grads_bf16"], seed, lib=parent)
 
             t_parent, t_kern = _in_turns(old, new)
             if variant == "bf16p":  # the same keying: the same bits, but where the two
@@ -579,7 +601,6 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
                 assert same >= 0.999 * total, f"parent vs new SR bits: {same} of {total} equal"
                 extra += f"SR bits as the parent's on {same / total:.6f} of single-entry rows, "
                 del a, b
-            del g_s, old_pre
         else:
             t_kern = cuda_ms(new)
         scratch = [[t.clone() for t in lv] for lv in t0]
@@ -642,21 +663,54 @@ def _bound(nbytes, flops):
 def _adam_library_ms(C, D, lr, rows=None, grads=None):
     """Yardstick only, never called by the port: torch.optim.Adam(fused=True)
     on a (C, D) table, its gradient index_add_-ed from the entries into a
-    dense one, or held at zero when none are given (K4's g = 0 variants)."""
+    dense one, or held at zero when none are given (K4's g = 0 variants).
+    Returns (ms of back-to-back calls, ms alone by graph replay)."""
     import torch
 
     q = torch.zeros((C, D), device=DEVICE, requires_grad=True)
-    opt = torch.optim.Adam([q], lr=lr, betas=(0.9, 0.99), eps=1e-15, fused=True)
+    opt = torch.optim.Adam([q], lr=lr, betas=(0.9, 0.99), eps=1e-15, fused=True,
+                           capturable=True)
     if rows is None:
         q.grad = torch.zeros_like(q)
-        return cuda_ms(opt.step)
+        return cuda_ms(opt.step), graph_ms(opt.step)
     rows_l = rows.long()
 
     def step():
         q.grad = torch.zeros_like(q).index_add_(0, rows_l, grads)
         opt.step()
 
-    return cuda_ms(step)
+    return cuda_ms(step), graph_ms(step)
+
+
+def _library_times(fn):
+    """(ms of back-to-back calls, ms alone by graph replay) of a library call."""
+    return cuda_ms(fn), graph_ms(fn)
+
+
+def _study_parents():
+    """Per study source, the ctypes entry of the parent commit's copy when
+    it was put in PARENT_DIR (git-ignored), else None."""
+    from shine_mapping_tpu_torch.ops import cuda_build
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+    from shine_mapping_tpu_torch.ops import tile_rmw as tr
+
+    out = {}
+    for name, mod in (("onehot_adam", oa), ("tile_rmw", tr)):
+        here = os.path.exists(os.path.join(PARENT_DIR, f"{name}.cu"))
+        out[name] = mod.c_entry(cuda_build.load(name, PARENT_DIR, PARENT_DIR)) if here else None
+        print(f"[kernels] parent {name}.cu: " + ("timed beside the new one" if here else
+              f"absent ({PARENT_DIR}/{name}.cu not present), not timed"))
+    return out
+
+
+def _kernel_times(launch, parent):
+    """(kernel alone, the parent's kernel alone or None), by graph replay,
+    in turns when the parent is there; ``launch(fn)`` launches with the
+    entry ``fn`` (None: this commit's)."""
+    if parent is None:
+        return graph_ms(launch), None
+    t_parent, t_kern = _in_turns(lambda: launch(parent), launch, graph_ms)
+    return t_kern, t_parent
 
 
 def _drive_study(extra=()):
@@ -677,8 +731,10 @@ def _drive_study(extra=()):
 
 def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
     """Each kernel-study kernel (K3-K7) and variant against its plain
-    version at the study scripts' bench shapes, with its times and bound;
-    then the study programs, launch counts zeroed before and read after."""
+    version at the study scripts' bench shapes, with its times (wrapper,
+    kernel alone, the parent's kernel in turns, K7 also with a cold L2) and
+    bound; then the study programs, launch counts zeroed before and read
+    after."""
     import numpy as np
     import torch
 
@@ -691,6 +747,8 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
     D = 8
     E = C * D  # table elements
     R = E // 128
+    parents = _study_parents()
+    par_oa = parents["onehot_adam"]
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -706,15 +764,23 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
     lib_zero = _adam_library_ms(C, D, lr)
     out = []
 
-    def record(name, err, ms, plain_ms, nbytes, flops, lib, note="", **extra):
+    def record(name, err, ms, t_kern, t_parent, plain_ms, nbytes, flops, lib, note="",
+               **extra):
+        """One JSON row and its [kernels] line; ``lib`` is (call ms, alone
+        ms) or None."""
         kernel, tpu, route, source = STUDY_KERNELS[name]
         bound, by = _bound(nbytes, flops)
+        lib_ms, lib_kern = (None, None) if lib is None else lib
         out.append(dict(name=name, route=route, source=source, replaces=tpu,
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=by, library_ms=lib, **extra))
-        lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
-        print(f"[kernels] {kernel} {name}: max_abs_err {err:.3e}, {note}kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library {lib_s}, bound {bound:.4f} ms ({by})")
+                        max_abs_err=err, ms=ms, kernel_only_ms=t_kern,
+                        parent_kernel_ms=t_parent, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, library_ms=lib_ms, library_kernel_ms=lib_kern, **extra))
+        lib_s = "n/a" if lib is None else f"{lib_ms:.4f} ms (alone {lib_kern:.4f} ms)"
+        par = ("parent absent" if t_parent is None
+               else f"parent kernel {t_parent:.4f} ms (in turns)")
+        print(f"[kernels] {kernel} {name}: max_abs_err {err:.3e}, {note}wrapper {ms:.4f} ms, "
+              f"kernel alone {t_kern:.4f} ms, {par}, plain {plain_ms:.4f} ms, library "
+              f"{lib_s}, bound {bound:.4f} ms ({by}), {bound / t_kern:.0%} of bound")
 
     def check(kern, plain):
         """p, m, v as phase 2 holds them (tolerance by each table's scale,
@@ -738,14 +804,14 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
                   f"wrapper {ms:.4f} ms")
             continue
         outs = [torch.empty_like(x) for x in base]
-        t_kern = cuda_ms(lambda: oa._launch(oa._MODE["narrow"], 0, *base, *outs, None, rows,
-                                            grads, None, offs, None, lr, bc1, bc2, R // tb,
-                                            tb, w, M, 0.9, 0.99, 1e-15))
+        t_kern, t_parent = _kernel_times(
+            lambda fn=None: oa._launch(oa._MODE["narrow"], 0, *base, *outs, None, rows, grads,
+                                       None, offs, None, lr, bc1, bc2, R // tb, tb, w, M,
+                                       0.9, 0.99, 1e-15, fn=fn), par_oa)
         t_plain = cuda_ms(lambda: oa.fused_adam_onehot_plain(*base, rows, grads, lr, bc1, bc2,
                                                              tb, w), iters=5)
-        record("fused_adam_onehot", err, ms, t_plain, 24 * E + 36 * M, ADAM_FLOPS * E,
-               lib_adam, f"windows_ok {ok}, tb {tb} w {w}, kernel alone {t_kern:.4f} ms, ",
-               kernel_only_ms=t_kern, windows_ok=ok)
+        record("fused_adam_onehot", err, ms, t_kern, t_parent, t_plain, 24 * E + 36 * M,
+               ADAM_FLOPS * E, lib_adam, f"windows_ok {ok}, tb {tb} w {w}, ", windows_ok=ok)
         del outs
     del kern, plain
 
@@ -765,19 +831,30 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
             err = 0.0
         else:
             err = check(kern, plain)
-        del kern, plain
+        del plain
         ms = cuda_ms(lambda: oa.fused_adam_onehot_variant(*base, *win, scal, tb, w, variant))
+
+        def launch(fn=None):
+            oa._launch(oa._MODE[variant], 0, *base, *kern, None, *win, scal, 0.0, 1.0, 1.0,
+                       R // tb, tb, w, Mpad, oa.B1, oa.B2, oa.EPS, fn=fn)
+
+        t_kern, t_parent = _kernel_times(launch, par_oa)
         t_plain = cuda_ms(lambda: oa.fused_adam_onehot_variant_plain(*base, *win, scal, tb, w,
                                                                      variant), iters=5)
         dot = variant.startswith("dot")
         # library: the entries' step for the dot variants, a zero-gradient
         # step for the g = 0 ones, and for copy torch.stack, whose three
-        # slices are fresh copies of p, m and v
-        lib = (lib_adam if dot else lib_zero if variant != "copy"
-               else cuda_ms(lambda: torch.stack(base)))
-        record(f"fused_adam_onehot_{variant}", err, ms, t_plain,
+        # slices are fresh copies of p, m and v; it is within a few percent
+        # of the kernel, so it is timed alone in turns with it
+        lib, note = (lib_adam if dot else lib_zero), ""
+        if variant == "copy":
+            t_stack, t_beside = _in_turns(lambda: torch.stack(base), launch, graph_ms)
+            lib = (cuda_ms(lambda: torch.stack(base)), t_stack)
+            note = f"kernel alone {t_beside:.4f} ms in turns with torch.stack, "
+        del kern
+        record(f"fused_adam_onehot_{variant}", err, ms, t_kern, t_parent, t_plain,
                24 * E + (lanes_bytes if dot else 0), 0 if variant == "copy" else ADAM_FLOPS * E,
-               lib, f"windows_ok {ok}, ", windows_ok=ok)
+               lib, f"windows_ok {ok}, {note}", windows_ok=ok)
         torch.cuda.empty_cache()
     del win
 
@@ -796,16 +873,20 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
         err = check(kern, plain)
         assert pc.dtype == dt and torch.equal(pc, kern[0].to(dt)), "pc is not the new p"
         ms = cuda_ms(lambda: oa.fused_adam_onehot_copy(*kern, *win, scal, tb, w, dt))
+        t_kern, t_parent = _kernel_times(
+            lambda fn=None: oa._launch(oa._MODE["dot_bf16"], oa._COPY[dt], *kern, *kern, pc,
+                                       *win, scal, 0.0, 1.0, 1.0, R // tb, tb, w, Mpad, oa.B1,
+                                       oa.B2, oa.EPS, fn=fn), par_oa)
         t_plain = cuda_ms(lambda: oa.fused_adam_onehot_copy_plain(*plain, *win, scal, tb, w,
                                                                   dt), iters=5)
-        record(f"fused_adam_onehot_copy_{name}", err, ms, t_plain,
+        record(f"fused_adam_onehot_copy_{name}", err, ms, t_kern, t_parent, t_plain,
                24 * E + E * pc.element_size() + lanes_bytes, ADAM_FLOPS * E, lib_adam,
                f"windows_ok {ok}, tb {tb} w {w}, pc == p_new.to({name}), ", windows_ok=ok)
         del kern, plain, pc
         torch.cuda.empty_cache()
     del win, base
 
-    # K6: the narrow-block sweep, Triton
+    # K6: the narrow-block sweep, Triton (no parent: its source is unchanged)
     x = t(rng.normal(0, 100, (C, D)).astype(np.float32))
     t0 = time.perf_counter()
     y = sw.sweep(x)
@@ -813,12 +894,14 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
     t_jit = time.perf_counter() - t0
     assert torch.equal(y, sw.sweep_plain(x)), "sweep differs from its plain version"
     one = torch.ones((), device=dev)
-    record("sweep", 0.0, cuda_ms(lambda: sw.sweep(x)), cuda_ms(lambda: sw.sweep_plain(x)),
-           8 * E, 2 * E, cuda_ms(lambda: torch.add(one, x, alpha=0.5)),
+    record("sweep", 0.0, cuda_ms(lambda: sw.sweep(x)), graph_ms(lambda: sw.sweep(x)), None,
+           cuda_ms(lambda: sw.sweep_plain(x)), 8 * E, 2 * E,
+           _library_times(lambda: torch.add(one, x, alpha=0.5)),
            f"bit-equal, Triton compile + first call {t_jit:.2f} s, ")
     del x, y
 
-    # K7: the tile read-modify-write of pallas_tile_rmw.py
+    # K7: the tile read-modify-write of pallas_tile_rmw.py; its data (34 MB)
+    # fits the L2, so it is timed warm (repeated launches) and cold
     table = t(rng.standard_normal((T, 128)).astype(np.float32))
     tiles = t(np.sort(rng.choice(T, N, replace=False)).astype(np.int32))
     deltas = t(rng.standard_normal((N, 128)).astype(np.float32))
@@ -827,9 +910,29 @@ def phase_study(C=1 << 22, M=65536, T=262144, N=32768, drive_args=()):
     assert torch.equal(kern, tr.tile_rmw_plain(table.clone(), tiles, deltas)), \
         "tile_rmw differs from its plain version"
     rows_l = tiles.long()
-    record("tile_rmw", 0.0, cuda_ms(lambda: tr.tile_rmw(kern, tiles, deltas)),
-           cuda_ms(lambda: tr.tile_rmw_plain(kern, tiles, deltas)), N * (4 + 3 * 512),
-           N * 128, cuda_ms(lambda: kern.index_add_(0, rows_l, deltas)), "bit-equal, ")
+
+    def rmw(fn=None):
+        tr.launch(kern, tiles, deltas, fn)
+
+    def lib7():
+        kern.index_add_(0, rows_l, deltas)
+
+    t_kern, t_parent = _kernel_times(rmw, parents["tile_rmw"])
+    if parents["tile_rmw"] is None:
+        t_cold, t_parent_cold = cold_ms(rmw), None
+    else:
+        t_parent_cold, t_cold = _in_turns(lambda: rmw(parents["tile_rmw"]), rmw, cold_ms)
+    t_lib_cold = cold_ms(lib7)
+    nbytes = N * (4 + 3 * 512)
+    bound, _ = _bound(nbytes, N * 128)
+    par = "" if t_parent_cold is None else f"parent {t_parent_cold:.4f} ms (in turns), "
+    record("tile_rmw", 0.0, cuda_ms(lambda: tr.tile_rmw(kern, tiles, deltas)), t_kern,
+           t_parent, cuda_ms(lambda: tr.tile_rmw_plain(kern, tiles, deltas)), nbytes,
+           N * 128, _library_times(lib7),
+           f"bit-equal, cold L2: kernel alone {t_cold:.4f} ms ({bound / t_cold:.0%} of "
+           f"bound), {par}index_add_ {t_lib_cold:.4f} ms; warm (L2-resident, against the "
+           f"same DRAM bound): ", cold_ms=t_cold, parent_cold_ms=t_parent_cold,
+           library_cold_ms=t_lib_cold)
     del table, kern, deltas
     torch.cuda.empty_cache()
 

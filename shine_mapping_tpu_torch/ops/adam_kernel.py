@@ -501,12 +501,12 @@ def _check_aligned(named):
 
 
 def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
-            eps, grads_bf16=False, seed=0):
-    """One launch of csrc/fused_adam.cu's ``variant`` on ``pre``'s binned
+            eps, grads_bf16=False, seed=0, lib=None):
+    """One launch of csrc/fused_adam.cu's ``variant`` (``lib``: the library
+    of another copy of it with the same interface) on ``pre``'s binned
     entries (no counting).  Returns whether a kernel ran (some used head is
     non-empty)."""
-    lib = cuda_build.load("fused_adam")
-    fn = getattr(lib, _C_ENTRY[variant])
+    fn = getattr(lib or cuda_build.load("fused_adam"), _C_ENTRY[variant])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 4
                        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3

@@ -299,14 +299,23 @@ def _device(p):
 # ------------------------------------------------------------------ kernel
 
 
+def c_entry(lib: ctypes.CDLL) -> ctypes._CFuncPtr:
+    """``lib.onehot_adam`` with its C signature declared: ``lib`` is the
+    library of ``csrc/onehot_adam.cu`` or of another copy of it with the same
+    interface."""
+    fn = lib.onehot_adam
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_float] * 9
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(mode, pc_kind, p, m, v, po, mo, vo, pc, ids, g0, g1, offs, scal, lr, bc1,
-            bc2, T, tb, w, n_ids, b1, b2, eps):
-    """One launch of csrc/onehot_adam.cu (no counting)."""
-    fn = cuda_build.load("onehot_adam").onehot_adam
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_float] * 9
-                       + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+            bc2, T, tb, w, n_ids, b1, b2, eps, fn=None):
+    """One launch of csrc/onehot_adam.cu (``fn``: another build's
+    :func:`c_entry`), not counted."""
+    if fn is None:
+        fn = c_entry(cuda_build.load("onehot_adam"))
 
     def ptr(t):
         return None if t is None else t.data_ptr()

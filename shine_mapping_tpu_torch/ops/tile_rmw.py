@@ -24,9 +24,20 @@ WIDTH = 128  # floats per table row (512 bytes)
 # kernel-study path
 LAUNCHES: Dict[str, int] = {"tile_rmw": 0}
 
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_entry_fn = None  # csrc/tile_rmw.cu's tile_rmw, resolved at the first launch
+
 
 def reset_launch_counts() -> None:
     LAUNCHES["tile_rmw"] = 0
+
+
+def c_entry(lib: ctypes.CDLL) -> ctypes._CFuncPtr:
+    """``lib.tile_rmw`` with its C signature declared: ``lib`` is the library
+    of ``csrc/tile_rmw.cu`` or of another copy of it with the same interface."""
+    fn = lib.tile_rmw
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
 
 
 def _check(table, tiles, deltas):
@@ -49,24 +60,34 @@ def tile_rmw_plain(table: torch.Tensor, tiles: torch.Tensor,
     return table.index_add_(0, tiles.long(), deltas)
 
 
-@torch.no_grad()
+def launch(table: torch.Tensor, tiles: torch.Tensor, deltas: torch.Tensor, fn=None) -> None:
+    """One launch of the kernel (``fn``: another build's :func:`c_entry`) on
+    CUDA tensors that :func:`tile_rmw` has checked, on the current stream of
+    the table's device; not counted."""
+    global _entry_fn
+    if fn is None:
+        if _entry_fn is None:
+            _entry_fn = c_entry(cuda_build.load("tile_rmw"))
+        fn = _entry_fn
+    dev = table.get_device()
+    args = (table.data_ptr(), tiles.data_ptr(), deltas.data_ptr(), tiles.shape[0],
+            table.shape[0])
+    if dev == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"tile_rmw kernel launch failed: CUDA error {err}")
+
+
 def tile_rmw(table: torch.Tensor, tiles: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     """``table[tiles[i]] += deltas[i]`` in place; returns ``table``."""
     _check(table, tiles, deltas)
-    if table.device.type == "cpu":
+    if not table.is_cuda:
+        if table.device.type != "cpu":
+            raise ValueError(f"tile_rmw runs on cuda (or cpu), not {table.device}")
         return tile_rmw_plain(table, tiles, deltas)
-    if table.device.type != "cuda":
-        raise ValueError(f"tile_rmw runs on cuda (or cpu), not {table.device}")
-    fn = cuda_build.load("tile_rmw").tile_rmw
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                                ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), tiles.data_ptr(), deltas.data_ptr(), tiles.shape[0],
-                 table.shape[0], stream)
-    if err != 0:
-        raise RuntimeError(f"tile_rmw kernel launch failed: CUDA error {err}")
+    launch(table, tiles, deltas)
     LAUNCHES["tile_rmw"] += 1
     return table

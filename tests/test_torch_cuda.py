@@ -571,3 +571,170 @@ def test_tile_rmw_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert tr.LAUNCHES["tile_rmw"] == before + 1
     assert torch.equal(kern.cpu(), plain)
+
+
+# ------------------------------------------------ the persistent grids of K7 and K3-K5
+# Both kernels walk their work with a persistent grid computed in C (the
+# SMs times the CTAs resident on one); each library reports its grid.  The
+# cases put the work below, at and past one pass of it, and at its edges.
+
+
+def _rmw_pass_jobs():
+    import ctypes
+
+    from shine_mapping_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("tile_rmw").tile_rmw_pass_jobs
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    jobs = int(fn())
+    assert jobs > 0
+    return jobs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "one", "ragged", "past_one_pass", "edge_rows",
+                                  "out_of_range"])
+def test_tile_rmw_grid_cases_bit_equal_to_index_add(cuda_device, case):
+    """K7 on the card bit-equal to index_add_: no job, one job, a job count
+    that is no multiple of the 8-job groups nor of a CTA's 64 jobs, more
+    jobs than one pass of the persistent grid takes, the table's first and
+    last rows, and rows outside the table, which are left untouched."""
+    from shine_mapping_tpu_torch.ops import tile_rmw as tr
+
+    rng = np.random.default_rng(27)
+    T, N = 4096, 323
+    if case == "empty":
+        N = 0
+    elif case == "one":
+        N = 1
+    elif case == "past_one_pass":
+        N = _rmw_pass_jobs() + 37
+        T = 2 * N
+    tiles = np.sort(rng.choice(T, N, replace=False))
+    if case == "edge_rows":
+        tiles[0], tiles[-1] = 0, T - 1
+    deltas = rng.standard_normal((N, 128)).astype(np.float32)
+    table = torch.from_numpy(rng.standard_normal((T, 128)).astype(np.float32))
+    plain = tr.tile_rmw_plain(table.clone(), torch.from_numpy(tiles.astype(np.int32)),
+                              torch.from_numpy(deltas))
+    if case == "out_of_range":  # jobs on rows -1 and T beside the others
+        tiles = np.concatenate([[-1], tiles, [T]])
+        deltas = np.concatenate([np.ones((1, 128), np.float32), deltas,
+                                 np.ones((1, 128), np.float32)])
+    kern = table.to(cuda_device)
+    tr.tile_rmw(kern, torch.from_numpy(tiles.astype(np.int32)).to(cuda_device),
+                torch.from_numpy(deltas).to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(kern.cpu(), plain)
+
+
+def _onehot_ctas(mode, pc_kind, w):
+    import ctypes
+
+    from shine_mapping_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("onehot_adam").onehot_adam_ctas
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    ctas = int(fn(mode, pc_kind, w))
+    assert ctas > 0
+    return ctas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["single", "below", "equal", "ragged"])
+@pytest.mark.parametrize("entry", ["k3", "copy", "window", "dot_bf16", "k5"])
+def test_onehot_grid_cases_match_plain(cuda_device, entry, tiles):
+    """K3, K4 (copy, window, dot_bf16) and K5 at one tile, one tile fewer
+    than the persistent grid has CTAs, as many, and two passes and a
+    remainder of it (tiles of 8 packed rows, so the CTAs' warps have one row
+    each); K4 and K5 (in place) bit-equal to their plain versions on the
+    card, K3 (whose plain version divides by Python floats, which torch
+    rounds as a product on the card) within 1e-6."""
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    mode, pc_kind = {"k3": (oa._MODE["narrow"], 0), "k5": (oa._MODE["dot_bf16"], 1)}.get(
+        entry, (oa._MODE.get(entry), 0))
+    tb, w = 8, 256
+    ctas = _onehot_ctas(mode, pc_kind, w)
+    T = {"single": 1, "below": ctas - 1, "equal": ctas, "ragged": 2 * ctas + 3}[tiles]
+    C = T * tb * oa.PACK
+    rng = np.random.default_rng(28)
+    p, m, v, rows, g = _study_inputs(rng, C, 4 * T)
+    if entry == "k3":
+        plain = oa.fused_adam_onehot(p, m, v, rows, g, LR, BC1, BC2, tb=tb, w=w)
+        kern = oa.fused_adam_onehot(*(t.to(cuda_device) for t in (p, m, v, rows, g)), LR, BC1,
+                                    BC2, tb=tb, w=w)
+        torch.cuda.synchronize()
+        _close_study(kern, plain)
+        return
+    inputs = [p, m, v, *oa.window_inputs(rows, g, C, tb, w),
+              torch.tensor([LR, BC1, BC2, 0.0])]
+    dev = [t.to(cuda_device) for t in inputs]
+    if entry == "k5":
+        plain = oa.fused_adam_onehot_copy_plain(*(t.clone().view(-1, 128) for t in dev[:3]),
+                                                *dev[3:], tb, w)
+        kern = oa.fused_adam_onehot_copy(*(t.view(-1, 128) for t in dev[:3]), *dev[3:], tb, w)
+        for a, b in zip(kern[:3], dev[:3]):
+            assert a.data_ptr() == b.data_ptr()  # in place
+    else:
+        plain = oa.fused_adam_onehot_variant_plain(*dev, tb, w, entry)
+        kern = oa.fused_adam_onehot_variant(*dev, tb, w, entry)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["k3", "dot_bf16", "k5"])
+def test_onehot_grid_at_the_largest_window(cuda_device, entry):
+    """At the largest window (w 6140: 49,120 B of staged ids a CTA, fewer
+    CTAs resident), a tile count of two passes of that grid and a
+    remainder; as test_onehot_grid_cases_match_plain."""
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    mode, pc_kind = {"k3": (oa._MODE["narrow"], 0), "k5": (oa._MODE["dot_bf16"], 1),
+                     "dot_bf16": (oa._MODE["dot_bf16"], 0)}[entry]
+    tb, w = 8, oa._MAX_W
+    T = 2 * _onehot_ctas(mode, pc_kind, w) + 3
+    C = T * tb * oa.PACK
+    rng = np.random.default_rng(29)
+    p, m, v, rows, g = _study_inputs(rng, C, 4 * T)
+    if entry == "k3":
+        plain = oa.fused_adam_onehot(p, m, v, rows, g, LR, BC1, BC2, tb=tb, w=w)
+        kern = oa.fused_adam_onehot(*(t.to(cuda_device) for t in (p, m, v, rows, g)), LR, BC1,
+                                    BC2, tb=tb, w=w)
+        torch.cuda.synchronize()
+        _close_study(kern, plain)
+        return
+    dev = [t.to(cuda_device) for t in [p, m, v, *oa.window_inputs(rows, g, C, tb, w),
+                                       torch.tensor([LR, BC1, BC2, 0.0])]]
+    if entry == "k5":
+        plain = oa.fused_adam_onehot_copy_plain(*(t.clone().view(-1, 128) for t in dev[:3]),
+                                                *dev[3:], tb, w)
+        kern = oa.fused_adam_onehot_copy(*(t.view(-1, 128) for t in dev[:3]), *dev[3:], tb, w)
+    else:
+        plain = oa.fused_adam_onehot_variant_plain(*dev, tb, w, entry)
+        kern = oa.fused_adam_onehot_variant(*dev, tb, w, entry)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_onehot_copy_ring_wraps_and_ends_mid_chunk(cuda_device):
+    """K4's copy (TMA bulk copies through a ring of 32 KB chunks): tables of
+    3,001 tiles of 8 packed rows (12 MB each, so every CTA of the grid
+    reuses its ring many times and each table ends in a part chunk) come
+    back equal to their inputs."""
+    from shine_mapping_tpu_torch.ops import onehot_adam as oa
+
+    tb, w, T = 8, 256, 3001
+    C = T * tb * oa.PACK
+    rng = np.random.default_rng(30)
+    p, m, v, rows, g = _study_inputs(rng, C, 4 * T)
+    dev = [t.to(cuda_device) for t in [p, m, v, *oa.window_inputs(rows, g, C, tb, w),
+                                       torch.tensor([LR, BC1, BC2, 0.0])]]
+    kern = oa.fused_adam_onehot_variant(*dev, tb, w, "copy")
+    torch.cuda.synchronize()
+    for a, b in zip(kern, (p, m, v)):
+        assert torch.equal(a.cpu(), b)
