@@ -70,7 +70,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. agreement: a small world trained on the card and on the CPU (the plain
    versions) from the same weights and batches: both iid updates, and bf16
    moments on both window layouts; the bf16-table mode (whose rounding
-   bits differ between the two) within a loss band.
+   bits differ between the two) within a loss band;
+6. map: the port's batch CLI (``cli.shine_batch.run_shine_mapping_batch``)
+   end to end on tests/synth.py's analytic world (20 frames of 64 x 1024
+   rays, exact ground truth), launch counts zeroed before and read after
+   each run.  Run A: the ICRA config at full width, 1,500 steps (K1 per
+   level), dense-bbx meshing through the node lattices, native marching,
+   ``eval_mesh``; held to Chamfer-L1 < 0.15 m and F-score > 75 %.  Its
+   final checkpoint loaded by the port gives the live map's SDF bit for bit,
+   and the card's dense lattice query of a sub-box agrees with the plain
+   path on CPU tensors (masks equal, |d sdf| <= 1e-5).  Run B: the bf16 map
+   mode through the CLI, 500 steps (K2 with stochastic rounding), held to
+   the same bars.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1237,6 +1248,221 @@ def phase_agreement():
               f"{cpu[2]:.6f}; {what}")
 
 
+# ----------------------------------------------------------------- phase 6
+
+
+# Chamfer-L1 (m) under, F-score (%) over: the bars the JAX package holds its
+# batch driver to on this scene (tests/test_e2e.py::test_batch_driver_end_to_end)
+MAP_BARS = (0.15, 75.0)
+# an eval of tests/test_e2e.py's parameters
+EVAL_KW = dict(down_sample_res=0.05, threshold=0.2, truncation_acc=0.4, truncation_com=2.0,
+               mesh_sample_point=300_000)
+
+
+def _load_synth():
+    """tests/synth.py (numpy only) by its path: a package named ``tests``
+    elsewhere on the path must not shadow it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "synth", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "synth.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_synth_sequence(root, n_frames=20, n_az=1024, n_el=64, seed=0):
+    """tests/synth.py's analytic world (a ground plane and a sphere) in KITTI
+    layout, as ``make_kitti_dataset`` writes it but at a 64-beam x
+    1024-azimuth scan: ``n_frames`` poses 1 m apart along +x at 1.5 m
+    height; and its exact ground-truth surface (200k points) as gt.ply.
+    Returns (the scans' point count, gt.ply's path)."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.data import io
+
+    synth = _load_synth()
+    rng = np.random.default_rng(seed)
+    pc_dir = os.path.join(root, "velodyne")
+    os.makedirs(pc_dir, exist_ok=True)
+    poses, n_pts = [], 0
+    for i in range(n_frames):
+        T = np.eye(4)
+        T[:3, 3] = [i * 1.0, 0.0, 1.5]
+        poses.append(T)
+        pts = synth.simulate_scan(T, n_az=n_az, n_el=n_el, rng=rng).astype(np.float32)
+        n_pts += len(pts)
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], axis=1).tofile(
+            os.path.join(pc_dir, f"{i:06d}.bin"))
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(str(v) for v in np.eye(4)[:3].reshape(-1)) + "\n")
+    with open(os.path.join(root, "poses.txt"), "w") as f:
+        for T in poses:
+            f.write(" ".join(str(v) for v in T[:3].reshape(-1)) + "\n")
+    gt_path = os.path.join(root, "gt.ply")
+    io.write_ply(gt_path, io.PointCloud(points=synth.gt_surface_points(200_000)))
+    return n_pts, gt_path
+
+
+def _map_config(root, out, iters, **tpu):
+    """The ICRA MaiCity batch config at its full width, on the synthetic
+    world: only the data paths, the output root, the depth (iters) and the
+    checkpoint / mesh cadence (= iters) change, and the ``tpu:`` knobs."""
+    from shine_mapping_tpu_torch.config import SHINEConfig
+
+    cfg = SHINEConfig().load(ICRA_CONFIG)
+    cut = {"iters": iters, "vis_freq_iters": iters, "save_freq_iters": iters}
+    print(f"[map] reduced: " + ", ".join(f"{k} {getattr(cfg, k)} -> {v}" for k, v in cut.items())
+          + "; data paths and output_root: the synthetic world"
+          + (f"; tpu: {tpu}" if tpu else ""))
+    cfg.pc_path = os.path.join(root, "velodyne")
+    cfg.pose_path = os.path.join(root, "poses.txt")
+    cfg.calib_path = os.path.join(root, "calib.txt")
+    cfg.output_root, cfg.device = out, DEVICE
+    for k, v in {**cut, **tpu}.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _map_run(label, cfg, gt_path, launch_key, per_step, preps):
+    """One run of the port's batch CLI in this process, launch counts zeroed
+    just before it and read just after; then its final mesh scored against
+    the ground truth and held to MAP_BARS.  Returns (run_path, grid,
+    params, launch counts)."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.cli.shine_batch import run_shine_mapping_batch
+    from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.utils import profiling
+
+    ak.reset_launch_counts()  # this path of the main path starts here
+    t0 = time.perf_counter()
+    run_path, grid, params = run_shine_mapping_batch(cfg=cfg)
+    counts = dict(ak.LAUNCHES)  # read right after the path
+    wall = time.perf_counter() - t0
+    assert counts[launch_key] == cfg.iters * per_step, \
+        f"{label}: {counts[launch_key]} {launch_key} launches, want {cfg.iters * per_step}"
+    assert counts["entry_prep"] == preps, f"{label}: {counts['entry_prep']} preps, want {preps}"
+    others = {k: n for k, n in counts.items() if k not in (launch_key, "entry_prep") and n}
+    assert not others, f"other kernels launched during {label}: {others}"
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    rec = recs[-1]
+    ms = [r["timing(s)/per_iter"] * 1e3 for r in recs]
+    peaks = profiling.last_hbm_monitor.samples
+    print(f"[map] {label}: data phase {rec['phase(s)/data']:.2f} s, pool "
+          f"{int(rec['pool_samples'])} samples, tables {[f.shape[0] for f in grid.features]} "
+          f"rows, corners {grid.corner_counts}; {cfg.iters} steps at "
+          f"{float(np.median(ms[1:] or ms)):.3f} ms/step (median over the {len(ms) - 1} "
+          f"chunks after the first; first {ms[0]:.3f}), {counts[launch_key]} {launch_key} "
+          f"launches, {counts['entry_prep']} entry_prep; loss {recs[0]['loss/total_loss']:.4f} "
+          f"-> {rec['loss/total_loss']:.4f}; peak device memory training "
+          f"{peaks['train'] / 2**30:.3f} GiB, meshing {peaks['mesh'] / 2**30:.3f} GiB; "
+          f"run {wall:.1f} s")
+    print(f"[map] {label}: mesh {int(rec['mesh/vertices'])} vertices, "
+          f"{int(rec['mesh/triangles'])} triangles; meshing "
+          + ", ".join(f"{k} {rec['mesh(s)/' + k]:.3f} s"
+                      for k in ("query", "readback", "marching", "finalize")))
+    m = eval_mesh(os.path.join(run_path, f"mesh/mesh_iter_{cfg.iters}.ply"), gt_path, **EVAL_KW)
+    print(f"[map] {label}: eval_mesh F-score {m['F-score (%)']:.3f} %, precision "
+          f"{m['Precision [Accuracy] (%)']:.3f} %, recall {m['Recall [Completeness] (%)']:.3f} "
+          f"%, Chamfer-L1 {m['Chamfer_L1 (m)']:.4f} m (bars: < {MAP_BARS[0]} m, > "
+          f"{MAP_BARS[1]} %)")
+    assert m["Chamfer_L1 (m)"] < MAP_BARS[0] and m["F-score (%)"] > MAP_BARS[1], \
+        f"{label}: map quality under the bars: {m}"
+    return run_path, grid, params, counts
+
+
+def _map_checkpoint_roundtrip(cfg, run_path, grid, params, gt_path, n=100_000):
+    """model_final.npz loaded by the port into a fresh grid and decoder
+    gives the live map's SDF and mask bit for bit at n points near the
+    surface."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.cli.common import build_grid
+    from shine_mapping_tpu_torch.data import io
+    from shine_mapping_tpu_torch.mesher import Mesher
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.utils import checkpoint as ckpt
+
+    skeleton = trainer.init_params(cfg, build_grid(cfg))
+    grid2, params2, _, iters = ckpt.load_checkpoint(
+        os.path.join(run_path, "model", "model_final.npz"), skeleton)
+    rng = np.random.default_rng(5)
+    gt = io.read_point_cloud(gt_path).points
+    pts = (gt[rng.integers(0, len(gt), n)] + rng.normal(0, 0.1, (n, 3))) * cfg.scale
+    live = Mesher(cfg, grid, params["geo"]).query_points(pts, cfg.infer_bs)
+    loaded = Mesher(cfg, grid2, params2["geo"]).query_points(pts, cfg.infer_bs)
+    assert iters == cfg.iters
+    assert np.array_equal(live[2], loaded[2]), "checkpoint: masks differ"
+    assert np.array_equal(live[0], loaded[0]), \
+        f"checkpoint: sdf differs by up to {np.abs(live[0] - loaded[0]).max()}"
+    print(f"[map] checkpoint round trip: model_final.npz (iter {iters}) loaded by the port, "
+          f"sdf and mask at {n} points bit-equal to the live map ({int(live[2].sum())} "
+          "inside the map)")
+
+
+def _map_agreement(cfg, grid, params):
+    """The dense lattice query of a sub-box around the sphere on the card
+    against the plain path on CPU tensors (the same map carried over)."""
+    import copy
+
+    import numpy as np
+
+    from shine_mapping_tpu_torch.mesher import Mesher
+    from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
+
+    box = (np.array([3.0, -3.0, -0.5]), np.array([9.0, 3.0, 2.5]))
+    card = Mesher(cfg, grid, params["geo"])
+    cpu = Mesher(cfg, HashGridHost.from_state_dict(grid.state_dict(), device="cpu"),
+                 copy.deepcopy(params["geo"]).cpu())
+    vn, vo = card.grid_shape_from_bbx(box, cfg.mc_res_m)
+    sdf_a, _, mask_a = card.query_grid_lattice(vn, vo, cfg.mc_res_m)
+    t_card = card.timing["query"]
+    sdf_b, _, mask_b = cpu.query_grid_lattice(vn, vo, cfg.mc_res_m)
+    diff = float(np.abs(sdf_a - sdf_b).max())
+    assert np.array_equal(mask_a, mask_b), \
+        f"mesher: masks differ at {int((mask_a != mask_b).sum())} voxels"
+    assert diff <= 1e-5, f"mesher: max |d sdf| {diff}"
+    print(f"[agreement] mesher: query_grid_lattice of a {tuple(int(v) for v in vn)} box "
+          f"({int(np.prod(vn))} voxels, {int(mask_a.sum())} in the map), card vs CPU: masks "
+          f"equal, max |d sdf| {diff:.3e} (<= 1e-5); query {t_card:.3f} s on the card, "
+          f"{cpu.timing['query']:.3f} s on the CPU")
+
+
+def phase_map(n_frames=20, iters_a=1500, iters_b=500, n_az=1024, n_el=64):
+    """Phase 6: the port's batch CLI end to end on the card (module doc)."""
+    import tempfile
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="smoke_map_") as tmp:
+        t0 = time.perf_counter()
+        n_pts, gt_path = write_synth_sequence(os.path.join(tmp, "world"), n_frames, n_az, n_el)
+        print(f"[map] synthetic world: {n_frames} frames of {n_el} x {n_az} rays, {n_pts} "
+              f"points, ground truth 200k points, written in {time.perf_counter() - t0:.1f} s")
+        # run A: the ICRA config as written (iid batches, pool lookups, K1
+        # per level with its live entry prep) and dense-bbx meshing
+        cfg = _map_config(os.path.join(tmp, "world"), os.path.join(tmp, "a"), iters_a)
+        run_path, grid, params, counts = _map_run(
+            "run A (ICRA config, K1)", cfg, gt_path, "fused_adam", 3, 3 * iters_a)
+        launches.update(counts)
+        _map_checkpoint_roundtrip(cfg, run_path, grid, params, gt_path)
+        _map_agreement(cfg, grid, params)
+        del grid, params
+        # run B: the bf16 map mode through the CLI (pool lookups, fused
+        # epoch windows, bf16 moments and tables, K2 with stochastic rounding)
+        cfg = _map_config(os.path.join(tmp, "world"), os.path.join(tmp, "b"), iters_b,
+                          feature_update="pallas", moments_bf16=True, batch_windows=True,
+                          params_bf16=True)
+        _, grid, params, counts = _map_run(
+            "run B (bf16 map mode, K2 + SR)", cfg, gt_path, "fused_adam_multi_bf16p", 1, 1)
+        assert grid.features[0].dtype.itemsize == 2, "run B did not keep bf16 tables"
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1262,8 +1488,10 @@ def main() -> int:
     grid, band, params, launches = phase_train(cfg)
     phase_query(grid, band, params)
     phase_agreement()
-    for k in kernels:  # K1/K2: counted over the training runs
-        k["launches"] = launches[k["name"]]
+    del grid, band, params
+    map_launches = phase_map()
+    for k in kernels:  # K1/K2: counted over the training runs and the CLI runs
+        k["launches"] = launches[k["name"]] + map_launches.get(k["name"], 0)
     kernels += study  # K3-K7: counted over the kernel-study programs
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} never launched on its path"

@@ -98,7 +98,17 @@ def lookup_level(
             slot 0 of its probe window — callers mask by ``found``).
         found: (N,) bool, node present in the map.
     """
-    q = quantize_points(coords, level)
+    return lookup_level_cells(table, quantize_points(coords, level))
+
+
+def lookup_level_cells(
+    table: LevelTable, q: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lookup_level` on integer node cells ``q`` (..., 3): callers that
+    derive the cells arithmetically (the mesher's node-lattice inference)
+    skip the float quantization.  Keys and hashes keep the low 32 bits, as
+    the JAX package's uint32 arithmetic does, so a cell past the grid's edge
+    misses in both packages alike."""
     lead = q.shape[:-1]
     q = q.reshape(-1, 3).to(torch.int64)
     S = table.keys.shape[0]
@@ -464,6 +474,33 @@ class HashGridHost:
         hl._rebuild_table()
         self.tables[li] = _level_table(hl, self.device)
 
+    # ---------------------------------------------------------------- host conveniences
+    def get_octree_nodes(self, level: int) -> np.ndarray:
+        """Node-center coordinates at ``level`` in the [-1,1] cube
+        (reference ``FeatureOctree.get_octree_nodes``,
+        model/feature_octree.py:94-101); the octree-tiled mesher's blocks."""
+        li = self.levels.index(level)
+        coords = self.host_levels[li].node_coords.astype(np.float64)
+        node_size = 2.0 ** (1 - level)
+        return coords * node_size - 1.0 + 0.5 * node_size
+
+    def print_detail(self) -> str:
+        """Per-level corner counts and map memory, coarse level first
+        (model/feature_octree.py:288-298); printed and returned."""
+        lines = ["Current map structure:"]
+        total = 0
+        for i in range(self.featured_level_num - 1, -1, -1):
+            hl = self.host_levels[i]
+            vox = self.leaf_vox_size * (2 ** (self.max_level - hl.level))
+            cnt = hl.n_corners + 1  # + trashbin, matching the reference's count
+            lines.append("%.2f m: %d voxel corners" % (vox, cnt))
+            total += cnt
+        mem = total * self.feature_dim * 4 / 1024 / 1024
+        lines.append("memory: %d x %d x 4 = %.3f MB" % (total, self.feature_dim, mem))
+        out = "\n".join(lines)
+        print(out)
+        return out
+
     # ---------------------------------------------------------------- (de)serialization
     def state_dict(self) -> dict:
         """Everything needed to restore the structure + features (numpy)."""
@@ -484,3 +521,45 @@ class HashGridHost:
             d[f"lvl{i}_importance"] = (
                 self.importance_weight[i].detach().cpu().numpy())
         return d
+
+    @classmethod
+    def from_state_dict(cls, d: dict, seed: int = 42, device="cuda") -> "HashGridHost":
+        """The grid that :meth:`state_dict` (of either package) describes, its
+        tables and float32 features on ``device``.  The hash tables are
+        rebuilt from the node lists, so their capacity may differ from the
+        saved grid's; every lookup finds the same node and corner rows."""
+        g = cls(
+            max_level=int(d["max_level"]),
+            featured_level_num=int(d["featured_level_num"]),
+            feature_dim=int(d["feature_dim"]),
+            feature_std=float(d["feature_std"]),
+            polynomial_interpolation=bool(d["poly"]),
+            leaf_vox_size=float(d["leaf_vox_size"]),
+            seed=seed,
+            device=device,
+        )
+        for i, hl in enumerate(g.host_levels):
+            coords = np.asarray(d[f"lvl{i}_node_coords"])
+            rows = np.asarray(d[f"lvl{i}_node_corner_rows"])
+            feats = np.asarray(d[f"lvl{i}_features"], dtype=np.float32)
+            hl.corner_capacity = feats.shape[0]
+            hl.n_corners = int(d[f"lvl{i}_n_corners"])
+            hl.n_nodes = coords.shape[0]
+            hl.node_coords = coords.astype(np.int32)
+            hl.node_corner_rows = rows.astype(np.int32)
+            hl.node_keys_sorted = np.sort(_pack64(coords))
+            # corner membership: every corner key of the nodes, its row
+            all_corners = (coords[:, None, :] + CORNER_OFFSETS[None, :, :]).reshape(-1, 3)
+            uk, first = np.unique(_pack64(all_corners), return_index=True)
+            hl.corner_keys_sorted = uk
+            hl.corner_rows_sorted = rows.reshape(-1)[first].astype(np.int32)
+            while hl.n_nodes > hl.node_capacity // 2:
+                hl.node_capacity *= 2
+            hl._rebuild_table()
+            g.tables[i] = _level_table(hl, g.device)
+            g.features[i] = torch.from_numpy(feats.copy()).to(g.device)
+            imp = d.get(f"lvl{i}_importance")
+            g.importance_weight[i] = (g._zeros(feats.shape[0]) if imp is None else
+                                      torch.from_numpy(np.asarray(imp, np.float32).copy())
+                                      .to(g.device))
+        return g

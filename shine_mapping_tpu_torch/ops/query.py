@@ -52,12 +52,24 @@ def query_feature_with_aux(
     found_per_level: List[torch.Tensor] = []
     for i, level in enumerate(levels):
         corners, found = lookup_level(tables[i], coords, level)
-        w = corner_weights(coords, level, poly_on)  # (N, 8)
-        w = torch.where(found[:, None], w, torch.zeros_like(w))
         # bf16 tables: the rows widen (exactly) to f32 before interpolation
         gathered = features[i][corners.long()].float()  # (N, 8, D)
-        contrib = torch.einsum("nc,ncd->nd", w.to(gathered.dtype), gathered)
+        contrib = interpolate_rows(corner_weights(coords, level, poly_on), found, gathered)
         feat = contrib if feat is None else feat + contrib
         corners_per_level.append(corners)
         found_per_level.append(found)
     return feat, corners_per_level, found_per_level
+
+
+def interpolate_rows(w: torch.Tensor, found: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """One level's interpolated feature: the 8 corner ``rows`` (N, 8, D)
+    weighted by ``w`` (N, 8) and summed corner by corner in order, zero where
+    ``found`` (N,) is False.  Each product and each sum is one rounded
+    elementwise operation, so the card and the CPU give the same bits, and
+    the mesher's node-lattice path, which calls it on the same values as the
+    direct path, agrees with it bit for bit."""
+    w = torch.where(found[:, None], w, torch.zeros_like(w)).to(rows.dtype)
+    acc = w[:, 0:1] * rows[:, 0]
+    for c in range(1, 8):
+        acc = acc + w[:, c:c + 1] * rows[:, c]
+    return acc

@@ -6,7 +6,9 @@ Port of the TPU kernel K7, ``rmw_kernel`` of ``experiments/pallas_tile_rmw.py``
 :func:`tile_rmw` launches the CUDA kernel of ``csrc/tile_rmw.cu`` on CUDA
 tensors and runs :func:`tile_rmw_plain` (``index_add_``) on CPU tensors; there
 is no fallback.  Rows must be unique, as the TPU kernel assumes: the kernel
-gives two jobs on one row no order.
+gives two jobs on one row no order.  A job on a row outside [0, T) is
+skipped on every device: the kernel skips it (``csrc/tile_rmw.cu``) and the
+plain version masks it out.
 """
 
 from __future__ import annotations
@@ -56,8 +58,10 @@ def _check(table, tiles, deltas):
 @torch.no_grad()
 def tile_rmw_plain(table: torch.Tensor, tiles: torch.Tensor,
                    deltas: torch.Tensor) -> torch.Tensor:
-    """The plain torch version (any device), in place."""
-    return table.index_add_(0, tiles.long(), deltas)
+    """The plain torch version (any device), in place; like the kernel it
+    skips jobs on rows outside [0, T)."""
+    keep = (tiles >= 0) & (tiles < table.shape[0])
+    return table.index_add_(0, tiles[keep].long(), deltas[keep])
 
 
 def launch(table: torch.Tensor, tiles: torch.Tensor, deltas: torch.Tensor, fn=None) -> None:

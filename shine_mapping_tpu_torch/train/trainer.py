@@ -216,12 +216,16 @@ def init_params(cfg, grid, generator: Optional[torch.Generator] = None) -> Dict[
     }
 
 
-def pool_to_device(pool, capacity: int, device="cuda"):
+def pool_to_device(pool, capacity: int, device="cuda", subset=None):
     """Pad the host pool to ``capacity`` and upload the point-mode fields
     (the ray, normal, origin, time and semantic fields arrive with the
-    options that read them).
+    options that read them).  ``subset``: host indices of the samples to
+    upload instead of all (the rotating sub-pools of a pool larger than the
+    device budget, JAX ``pool_to_device(subset=)``).
 
     Returns (device pool dict, n_valid)."""
+    if subset is not None:
+        pool = _subset_pool(pool, subset)
     n = len(pool)
     if capacity < n:
         raise ValueError(f"pool of {n} samples exceeds capacity {capacity}")
@@ -237,6 +241,20 @@ def pool_to_device(pool, capacity: int, device="cuda"):
         "weight": pad(pool.weight),
     }
     return dev, n
+
+
+def _subset_pool(pool, idx):
+    """The host pool's samples ``idx`` (fields of another length, such as a
+    ray pool's per-ray depths, kept whole)."""
+    import copy
+
+    sub = copy.copy(pool)
+    for f in ("coord", "sdf_label", "normal_label", "sem_label", "weight",
+              "sample_depth", "origin", "time"):
+        a = getattr(pool, f)
+        if a is not None and a.shape[0] == len(pool):
+            setattr(sub, f, a[idx])
+    return sub
 
 
 @torch.no_grad()

@@ -738,3 +738,46 @@ def test_onehot_copy_ring_wraps_and_ends_mid_chunk(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(kern, (p, m, v)):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_mesher_card_equals_cpu_bit_for_bit(cuda_device):
+    """The mesher on the card and on CPU tensors: the same mask and, with
+    its sums in a fixed order, the same sdf bits, on both the dense lattice
+    grid and the octree blocks."""
+    import copy
+
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.mesher import Mesher
+    from shine_mapping_tpu_torch.models.decoder import Decoder
+    from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
+
+    rng = np.random.default_rng(31)
+    dirs = rng.standard_normal((4000, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    cfg = SHINEConfig()
+    cfg.tree_level_world, cfg.tree_level_feat, cfg.leaf_vox_size = 7, 3, 0.5
+    cfg.derive()
+    cpu_grid = HashGridHost(7, 3, 8, 0.3, seed=2, init_node_capacity=1 << 12,
+                            init_corner_capacity=1 << 12, device="cpu")
+    cpu_grid.update((dirs * 0.5).astype(np.float32))
+    dec = Decoder(8, generator=torch.Generator().manual_seed(3), device="cpu")
+    bbx = (np.full(3, -0.6) / cfg.scale, np.full(3, 0.6) / cfg.scale)
+    vs = 0.013 / cfg.scale
+    m = Mesher(cfg, cpu_grid, dec)
+    vn, vo = m.grid_shape_from_bbx(bbx, vs)
+    sdf, _, mask = m.query_grid_lattice(vn, vo, vs)
+    with torch.no_grad():  # centre the field on the map, so that it has a surface
+        dec.lout.bias += float(np.median(sdf[mask]))
+    meshers = [m, Mesher(cfg, HashGridHost.from_state_dict(cpu_grid.state_dict(),
+                                                           device=cuda_device),
+                         copy.deepcopy(dec).to(cuda_device))]
+    (s0, _, m0), (s1, _, m1) = (m.query_grid_lattice(vn, vo, vs) for m in meshers)
+    assert m0.any() and np.array_equal(m0, m1)
+    assert np.array_equal(s0.view(np.int32), s1.view(np.int32))
+    ql = cfg.mc_query_level
+    v0, v1 = (m.recon_octree_mesh(ql, 2 ** (1 - ql) / cfg.scale / 5, "", "",
+                                  filter_isolated_mesh=False) for m in meshers)
+    assert v0.triangles.shape[0] > 0
+    np.testing.assert_array_equal(v0.triangles, v1.triangles)
+    np.testing.assert_array_equal(v0.vertices, v1.vertices)

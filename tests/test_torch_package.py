@@ -30,7 +30,11 @@ def test_port_imports_without_jax():
     """Every module of the port imports with ``jax`` and the JAX package
     made unimportable (a None entry in sys.modules raises ImportError)."""
     mods = _port_modules()
-    assert "shine_mapping_tpu_torch.train.trainer" in mods
+    for m in ("train.trainer", "mesher", "eval.metrics", "eval.evaluator",
+              "eval.crop_intersection", "utils.checkpoint", "utils.profiling",
+              "utils.experiment", "utils.metrics_logger", "cli.common", "cli.shine_batch",
+              "ops.marching", "ops.native_build"):
+        assert "shine_mapping_tpu_torch." + m in mods, m
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'shine_mapping_tpu'):\n"

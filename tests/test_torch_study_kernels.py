@@ -112,6 +112,20 @@ def test_study_wrappers_reject_what_the_kernels_do_not_take():
         tr.tile_rmw(torch.zeros(16, 64), tiles, torch.zeros(2, 128))
 
 
+def test_k7_skips_rows_outside_the_table():
+    """K7's one contract on every device: a job on a row outside [0, T) is
+    skipped, as the kernel skips it (csrc/tile_rmw.cu); the other jobs land
+    exactly as index_add_ puts them."""
+    rng = np.random.default_rng(5)
+    T = 16
+    table = torch.from_numpy(rng.standard_normal((T, 128)).astype(np.float32))
+    tiles = torch.tensor([-1, 0, 7, T - 1, T, 1 << 20], dtype=torch.int32)
+    deltas = torch.from_numpy(rng.standard_normal((6, 128)).astype(np.float32))
+    want = table.clone().index_add_(0, tiles[1:4].long(), deltas[1:4])
+    got = tr.tile_rmw(table.clone(), tiles, deltas)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name, lines", [
     ("exp_fused_adam", ["correctness OK", "onehot fused tb=512 w=512:"]),
     ("exp_pallas_debug", ["correctness dot_bf16:", "onehot   :", "dot_hi   :"]),
