@@ -1,4 +1,4 @@
-"""Shared driver plumbing for the batch CLI.
+"""Shared driver plumbing for the batch and incremental CLIs.
 
 Port of ``shine_mapping_tpu/cli/common.py``.  Its ``device_local`` exists
 for multi-host runs, which are ROADMAP Queue A item 14: on one card it is
@@ -16,6 +16,38 @@ from ..config import SHINEConfig
 from ..ops.hashgrid import HashGridHost
 from ..train.optimizer import FEATURES, OptState
 from ..utils import checkpoint as ckpt
+
+
+def torch_device_of(cfg: SHINEConfig) -> torch.device:
+    """The entry point's device, ``setting.device``; raises when it is the
+    card and there is none (a driver never carries on on the CPU unless the
+    config says ``cpu``)."""
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"setting.device is {cfg.device!r} but no CUDA device is "
+                           "available; set setting.device: cpu to run on the CPU")
+    return device
+
+
+def check_supported(cfg: SHINEConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for the config
+    options the drivers do not run yet."""
+    todo = []
+    if cfg.num_processes > 1 or cfg.mesh_shape > 1:
+        todo.append("multi-host and data-parallel runs, row-sharded windows (Queue A item 14)")
+    if cfg.o3d_vis_on:
+        todo.append("the visualizer, o3d_vis_on (Queue A item 15)")
+    if cfg.time_conditioned:
+        todo.append("time-conditioned maps and meshing (Queue A item 15)")
+    if todo:
+        raise NotImplementedError("not ported yet, see ROADMAP.md: " + "; ".join(todo))
+
+
+def seed_for(*keys: int) -> int:
+    """A generator seed drawn from ``keys`` (the config seed and a chunk's
+    start iteration or a frame, ...), so a resumed run draws what an
+    uninterrupted one would (JAX ``fold_in``)."""
+    return int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0] >> 1)
 
 
 def build_grid(cfg: SHINEConfig) -> HashGridHost:

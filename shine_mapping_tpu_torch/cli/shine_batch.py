@@ -40,31 +40,15 @@ from ..utils.metrics_logger import MetricsLogger
 from ..utils.profiling import HbmMonitor, PhaseTimer, device_trace
 from .common import (
     build_grid,
+    check_supported,
     event_boundaries,
     maybe_load_model,
     pad_opt_state_features,
     pool_capacity_for,
+    seed_for,
     sync_features_to_grid,
+    torch_device_of,
 )
-
-
-def _seed(*keys: int) -> int:
-    """A generator seed drawn from ``keys`` (the config seed and a chunk's
-    start iteration, ...), so a resumed run draws what an uninterrupted one
-    would (JAX ``fold_in``)."""
-    return int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0] >> 1)
-
-
-def _check_supported(cfg: SHINEConfig) -> None:
-    todo = []
-    if cfg.num_processes > 1 or cfg.mesh_shape > 1:
-        todo.append("multi-host and data-parallel runs, row-sharded windows (Queue A item 14)")
-    if cfg.o3d_vis_on:
-        todo.append("the visualizer, o3d_vis_on (Queue A item 15)")
-    if cfg.time_conditioned:
-        todo.append("time-conditioned maps and meshing (Queue A item 15)")
-    if todo:
-        raise NotImplementedError("not ported yet, see ROADMAP.md: " + "; ".join(todo))
 
 
 class _Staged:
@@ -97,11 +81,8 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
             sys.exit("Please provide the path to the config file.\n"
                      "Try: python -m shine_mapping_tpu_torch.cli.shine_batch xxx_config.yaml")
         cfg = SHINEConfig().load(config_path)
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"setting.device is {cfg.device!r} but no CUDA device is "
-                           "available; set setting.device: cpu to run on the CPU")
-    _check_supported(cfg)
+    device = torch_device_of(cfg)
+    check_supported(cfg)
 
     run_path = setup_experiment(cfg, config_path)
     logger = MetricsLogger(run_path, cfg.wandb_vis_on, run_name=cfg.name)
@@ -218,7 +199,7 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         if pre is None or not use_windows:
             return None
         win = trainer.precompute_batch_windows(
-            pre, n_live, torch.Generator(device).manual_seed(_seed(cfg.seed, 0x5157)),
+            pre, n_live, torch.Generator(device).manual_seed(seed_for(cfg.seed, 0x5157)),
             settings, [tuple(f.shape) for f in params[FEATURES]], fused=use_winx)
         print(f"{'fused' if use_winx else 'per-level'} windows: W={win.n_windows}")
         return win
@@ -264,7 +245,7 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                 batch_windows = make_windows(pre_lookups)
         # the chunk's batches depend only on its start iteration, so a resumed
         # run draws the batches an uninterrupted run would
-        gen = torch.Generator(device).manual_seed(_seed(cfg.seed, start))
+        gen = torch.Generator(device).manual_seed(seed_for(cfg.seed, start))
         # a torch.profiler trace of one steady-state chunk (the second; a
         # one-chunk run traces its only chunk)
         trace_this = bool(cfg.profile_dir and not profiled

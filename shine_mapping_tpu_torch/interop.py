@@ -9,6 +9,10 @@ and build the port's (``train.trainer.init_params`` layout and
 ``train.optimizer.OptState``), or the inverse.  JAX's ``w{i}`` is
 ``(in, out)``; ``nn.Linear.weight`` is ``(out, in)``: weights are transposed.
 
+The continual-learning shadow, ``{"importance": (tables...),
+"last_frame": (tables...)}`` (JAX ``train_chunk``'s ``shadow`` argument,
+the port's ``train_chunk(shadow=...)``), crosses the same way.
+
 Feature tables and their moments keep their dtype: float32, or bfloat16 (the
 bf16 map mode), which numpy holds as ``ml_dtypes.bfloat16`` on the JAX side.
 Those cross through a 16-bit integer view, so no value is rounded either way.
@@ -147,3 +151,16 @@ def opt_state_to_jax(opt: OptState) -> Dict[str, Any]:
         return out
 
     return {"m": tree(opt.m), "v": tree(opt.v), "step": int(opt.step)}
+
+
+SHADOW = ("importance", "last_frame")
+
+
+def shadow_from_jax(jax_shadow: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The JAX shadow (numpy tables) -> the port's, each table a copy."""
+    return {k: [_table_from_numpy(t, device) for t in jax_shadow[k]] for k in SHADOW}
+
+
+def shadow_to_jax(shadow: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's shadow -> the JAX package's layout (numpy tuples)."""
+    return {k: tuple(_table_to_numpy(t) for t in shadow[k]) for k in SHADOW}

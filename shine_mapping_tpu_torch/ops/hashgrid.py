@@ -16,12 +16,19 @@ code unchanged, so the same seed and points give bit-identical hash tables,
 corner rows and feature tables in both packages.  The device side holds
 torch tensors; a growth step writes the touched slots and the new feature
 rows in place with ``index_copy_``.
+
+The continual-learning shadows (``importance_weight``,
+``features_last_frame``) are tables of their own.  JAX's snapshot
+``features_last_frame[l] = features[l]`` is a snapshot because jnp arrays
+are immutable; the port trains ``features`` in place, so its snapshot is a
+copy (``clone``), never an alias that would track the training.  Only an
+incremental ``update`` takes one (the batch driver holds no snapshot).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -272,8 +279,9 @@ class HashGridHost:
     """Growable hierarchical feature grid (host controller).
 
     Owns numpy mirrors of the per-level hash tables plus the device feature
-    tables (torch, on ``device``) and the continual-learning importance
-    table.  ``update`` mirrors reference ``FeatureOctree.update``
+    tables (torch, on ``device``) and the continual-learning shadows
+    (importance, last-frame snapshot).  ``update`` mirrors reference
+    ``FeatureOctree.update``
     (model/feature_octree.py:114-166).  Initial features come from a numpy
     generator seeded with ``seed``, so both packages draw the same values.
     """
@@ -330,10 +338,12 @@ class HashGridHost:
         self.features: List[torch.Tensor] = [
             self._zeros(hl.corner_capacity) for hl in self.host_levels
         ]
-        # continual-learning shadow (reference model/feature_octree.py:143-146)
+        # continual-learning shadows (reference model/feature_octree.py:143-146)
         self.importance_weight: List[torch.Tensor] = [
             self._zeros(hl.corner_capacity) for hl in self.host_levels
         ]
+        # None until an incremental update() takes the snapshot
+        self.features_last_frame: List[Optional[torch.Tensor]] = [None] * featured_level_num
 
     def _zeros(self, rows: int, dtype=torch.float32) -> torch.Tensor:
         return torch.zeros((rows, self.feature_dim), dtype=dtype, device=self.device)
@@ -362,12 +372,10 @@ class HashGridHost:
         Mirrors reference ``FeatureOctree.update`` (model/feature_octree.py:
         114-166): for each featured level, find unseen nodes, allocate their
         unique corners with randn * feature_std init, and record the node ->
-        corner-row mapping.
+        corner-row mapping.  When ``incremental_on``, each level's last-frame
+        snapshot becomes a copy of its grown table (importance rows of new
+        corners start at zero), model/feature_octree.py:143-146,157-160.
         """
-        if incremental_on:
-            raise NotImplementedError(
-                "incremental growth (last-frame snapshots) is ROADMAP Queue A "
-                "item 10 (incremental driver + continual learning)")
         # float32, matching the device-side query quantization exactly
         surface_points = np.asarray(surface_points, dtype=np.float32)
         for li, hl in enumerate(self.host_levels):
@@ -375,6 +383,8 @@ class HashGridHost:
             node_keys = np.unique(_pack64(q))
             new_keys = node_keys[~_isin_sorted(node_keys, hl.node_keys_sorted)]
             if new_keys.size == 0:
+                if incremental_on:
+                    self._snapshot(li)
                 continue
             new_nodes = _unpack64(new_keys)  # (M, 3)
 
@@ -456,6 +466,13 @@ class HashGridHost:
                     torch.from_numpy(new_rows.astype(np.int64)).to(self.device),
                     torch.from_numpy(init).to(self.device, self.feature_dtype),
                 )
+            if incremental_on:
+                self._snapshot(li)
+
+    def _snapshot(self, li: int) -> None:
+        """The last-frame snapshot of level ``li``: a copy, since training
+        writes ``features`` in place."""
+        self.features_last_frame[li] = self.features[li].clone()
 
     def _grow_feature_tables(self, li: int) -> None:
         """Double a level's feature-table capacity (zero-padded)."""

@@ -91,7 +91,9 @@ def adam_update(
 
     Increments ``state.step``.  A missing gradient is a zero gradient, as in
     JAX where an unused leaf's gradient is zeros.  Weight decay is added to
-    the gradient torch-style (grad += wd * param)."""
+    the gradient torch-style (grad += wd * param).  A parameter whose
+    ``lr * lr_scale`` is 0 (a frozen decoder) keeps its value bit for bit
+    while its moments advance."""
     state.step += 1
     bc1, bc2 = bias_corrections(state.step, b1, b2)
     for k, p in params.items():
@@ -103,7 +105,8 @@ def adam_update(
         v = state.v[k]
         m.mul_(b1).add_((1.0 - b1) * g)
         v.mul_(b2).add_((1.0 - b2) * (g * g))
-        p.sub_(lr * lr_scale[k] * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        if lr * lr_scale[k]:
+            p.sub_(lr * lr_scale[k] * (m / bc1) / (torch.sqrt(v / bc2) + eps))
 
 
 def make_group_trees(params: Dict[str, Any], level_lr_ratio: float,

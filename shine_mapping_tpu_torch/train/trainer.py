@@ -11,7 +11,7 @@ Port of the main path of ``shine_mapping_tpu/train/trainer.py``:
    (``hashgrid.lookup_level``), or a gather from lookups resolved once per
    pool (:func:`precompute_pool_lookups`); misses -> the trashbin row; then
    gather the rows ``G_i`` (widened to float32 from bf16 tables);
-3. interpolate and decode (``_feat_from_rows``, ``decoder.sdf``), take the
+3. interpolate and decode (``feat_from_rows``, ``decoder.sdf``), take the
    loss (``_compute_loss_sparse``; the eikonal term differentiates the field
    w.r.t. the points, so the backward is second order);
 4. Adam on the decoders (``optimizer.adam_update``);
@@ -34,6 +34,19 @@ params_bf16: true}``) is pool lookups + fused windows + bf16 moments
 (``optimizer.init_opt_state(moments_bf16=True)``) + bf16 tables
 (``HashGridHost.cast_features``), whose update writes the parameters back
 with stochastic rounding seeded by the step's iteration.
+
+Continual learning (the incremental driver): ``continual_reg_on`` adds the
+reference's feature regularizer ``lambda * sum imp * (p - last)^2`` over
+the batch's touched rows (model/feature_octree.py:246-255; JAX
+``body_fused``, trainer.py:1357-1373, and the fused-window fold of
+``body_winx``, :1520-1547).  Its gradient ``2 lambda imp (p - last)`` rides
+the kernel's gradient entries: each touched row has one owner entry, its
+first (sample, corner) among the batch's found corners, and the term is
+added to that entry in float32 before the launch (and before any bf16
+rounding of the entries), so the entry count stays ``bs * 8`` per level.
+Fused windows precompute the owner flags (``reg_cover``); iid batches
+compute them per step.  ``freeze_decoder`` zeroes the decoders' lr while
+their Adam state still advances (trainer.py:927-932).
 """
 
 from __future__ import annotations
@@ -293,6 +306,9 @@ class BatchWindows:
     idx: torch.Tensor
     fused: bool
     preps: List[EntryPrep]
+    # continual-learning reg: per level, (W, bs, 8) bool owner flags
+    # (:func:`owner_flags` of each window), or None
+    owner: Optional[List[torch.Tensor]] = None
 
     @property
     def n_windows(self) -> int:
@@ -309,7 +325,8 @@ class BatchWindows:
 def precompute_batch_windows(pre_lookups, n_valid: int,
                              generator: Optional[torch.Generator],
                              settings: TrainSettings, feat_shapes, fused: bool = True,
-                             window_indices: Optional[torch.Tensor] = None) -> BatchWindows:
+                             window_indices: Optional[torch.Tensor] = None,
+                             reg_cover: bool = False) -> BatchWindows:
     """Epoch-style batch windows, with the update's row prep computed once
     per window (JAX ``precompute_batch_windows``, trainer.py:1751, whose
     window membership ``precompute_batch_windows_fused`` shares).
@@ -321,6 +338,12 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
     ``train_chunk`` trains iteration ``t`` on window ``(start_iter + t) % W``.
     ``window_indices`` (W, bs) replaces the permutation with given windows —
     a test seam that lets a test hand across the JAX package's.
+
+    ``reg_cover`` also stores each window's reg owner flags
+    (:func:`owner_flags`, one bool per entry: JAX's ``reg_cover`` masks,
+    trainer.py:2250-2298, which pack a slot bit per lane and overflow an
+    int32 below feature_dim 4; a flag per entry has no width to overflow).
+    ``train_chunk`` needs them under ``continual_reg_on``.
 
     ``fused`` picks the layout (``tpu.windows_fused``): one
     ``fused_adam_multi`` launch per step over all levels, with one
@@ -372,24 +395,66 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
             f"{int(dropped.sum())} entries of windows {bad[:8].tolist()} lie past "
             f"the n_used heads {tuple(n_used)}: the hint is stale (recompute "
             "used_rows_for); nothing was trained")
-    return BatchWindows(idx=idx, fused=fused, preps=preps)
+    owner = None
+    if reg_cover:
+        owner = [owner_flags(rows[i], pre_lookups[i][1][idx]) for i in range(len(sizes))]
+    return BatchWindows(idx=idx, fused=fused, preps=preps, owner=owner)
 
 
-def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes) -> int:
+def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes,
+                           reg_cover: bool = False) -> int:
     """Device bytes :func:`precompute_batch_windows` holds for a run (JAX
     ``estimate_windows_bytes``, trainer.py:1807, on the port's layout): per
     window the int64 indices and, per entry (bs x 8 corners x L levels),
-    an int32 row and an int32 order, plus per prep an int64 dropped count
-    and an int32 offset per tile of the update kernel and one more
-    (``feat_shapes``: the tables' (C_l, D)).  Counted for the per-level
-    layout, whose L preps hold L - 1 tile offsets more than the fused one."""
+    an int32 row and an int32 order (and with ``reg_cover`` a bool owner
+    flag), plus per prep an int64 dropped count and an int32 offset per
+    tile of the update kernel and one more (``feat_shapes``: the tables'
+    (C_l, D)).  Counted for the per-level layout, whose L preps hold L - 1
+    tile offsets more than the fused one."""
     s = settings
     W = max(-(int(n_valid) // -s.bs), 1)
     L = len(s.levels)
     sizes = [int(C) for C, _ in feat_shapes]
     n_used = list(s.n_used) if s.n_used is not None else sizes
     tiles = sum(-(-nu // adam_kernel.tile_rows(D)) for nu, (_, D) in zip(n_used, feat_shapes))
-    return W * (8 * s.bs + 8 * s.bs * 8 * L + 8 * L + 4 * (tiles + L))
+    per_entry = 8 + (1 if reg_cover else 0)
+    return W * (8 * s.bs + per_entry * s.bs * 8 * L + 8 * L + 4 * (tiles + L))
+
+
+def owner_flags(corners: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
+    """Which gradient entries carry the continual-learning reg: of a batch's
+    corner rows ``corners`` (..., B, 8) and found masks ``found`` (..., B),
+    the first (sample, corner), in sample-major order, of each row that a
+    found sample touches (a stable sort over the batch's ``B * 8`` entries;
+    JAX's cover masks choose the same owner, trainer.py:2250-2262).
+    Returns (..., B, 8) bool; misses own nothing, so the trashbin row
+    takes no reg."""
+    lead, B = corners.shape[:-2], corners.shape[-2]
+    rows = torch.where(found[..., None], corners.to(torch.int64), -1).reshape(*lead, B * 8)
+    srt, order = torch.sort(rows, dim=-1, stable=True)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    first &= srt >= 0
+    own = torch.zeros_like(first).scatter_(-1, order, first)
+    return own.reshape(corners.shape)
+
+
+def _reg_fold(s: TrainSettings, shadow, corners, G, grads, owner):
+    """The continual-learning reg on each level's owner entries: returns the
+    gradient entries with ``2 lambda imp (p - last)`` added in float32 on
+    the owner entries (new tensors, the kernel's input), and the reg
+    ``sum imp (p - last)^2`` over them (JAX body_fused's dense form,
+    trainer.py:1364-1373: touched rows once each)."""
+    out, reg = [], None
+    for i in range(len(s.levels)):
+        rows = corners[i].long()
+        imp = shadow["importance"][i][rows]
+        diff = G[i].detach() - shadow["last_frame"][i][rows].float()
+        own = owner[i][..., None]
+        out.append(grads[i] + torch.where(own, (2.0 * s.lambda_forget) * imp * diff, 0.0))
+        term = torch.where(own, imp * diff * diff, 0.0).sum()
+        reg = term if reg is None else reg + term
+    return out, reg
 
 
 def _gather_batch(pool, idx):
@@ -400,12 +465,13 @@ def _gather_batch(pool, idx):
     }
 
 
-def _feat_from_rows(c, G_l, found_l, s: TrainSettings):
+def feat_from_rows(c, G_l, found_l, levels: Sequence[int], poly_on: bool):
     """Interpolated hierarchical feature from the gathered corner rows
-    ``G_l[i]`` (B, 8, D); misses (``found`` False) contribute zero."""
+    ``G_l[i]`` (B, 8, D) of ``levels``; misses (``found`` False) contribute
+    zero."""
     f = None
-    for i, level in enumerate(s.levels):
-        w = corner_weights(c, level, s.poly_int_on)
+    for i, level in enumerate(levels):
+        w = corner_weights(c, level, poly_on)
         w = torch.where(found_l[i][:, None], w, torch.zeros_like(w))
         contrib = torch.einsum("nc,ncd->nd", w.to(G_l[i].dtype), G_l[i])
         f = contrib if f is None else f + contrib
@@ -424,7 +490,7 @@ def _compute_loss_sparse(geo: Decoder, G_list, batch, found, s: TrainSettings):
     aux: Dict[str, torch.Tensor] = {}
     coords = batch["coord"].detach().requires_grad_(s.ekional_loss_on)
 
-    pred = geo.sdf(_feat_from_rows(coords, G_list, found, s))
+    pred = geo.sdf(feat_from_rows(coords, G_list, found, s.levels, s.poly_int_on))
     if s.ekional_loss_on:
         # d pred / d coord with a graph, so the eikonal term trains the rows
         # and the decoder through a second-order backward
@@ -462,13 +528,13 @@ def _gather_rows(feats, corners):
     return G
 
 
-def _lookup_rows(tables, feats, coords, s: TrainSettings):
+def lookup_rows(tables, feats, coords, levels: Sequence[int]):
     """Per level: the containing node's corner rows (misses -> the trashbin
     row; a missed probe lands on an arbitrary slot whose rows may belong to
     a real node), the found mask, and the gathered rows ``G_i``."""
     corners, found = [], []
     with torch.no_grad():
-        for i, level in enumerate(s.levels):
+        for i, level in enumerate(levels):
             c_i, f_i = lookup_level(tables[i], coords, level)
             trash = torch.full_like(c_i, feats[i].shape[0] - 1)
             corners.append(torch.where(f_i[:, None], c_i, trash))
@@ -480,7 +546,7 @@ def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, 
     """The training loss terms on the pool samples ``idx``, without a step
     (the eikonal term still differentiates the field w.r.t. the points)."""
     batch = _gather_batch(pool, idx)
-    _, found, G = _lookup_rows(tables, params[FEATURES], batch["coord"], settings)
+    _, found, G = lookup_rows(tables, params[FEATURES], batch["coord"], settings.levels)
     _, aux = _compute_loss_sparse(params["geo"], G, batch, found, settings)
     return {k: a.detach() for k, a in aux.items()}
 
@@ -498,8 +564,6 @@ def _check_supported(s: TrainSettings, batch_sharding, batch_windows) -> None:
                  "proj_correction_on", "semantic_on", "time_conditioned"):
         if getattr(s, flag):
             todo.append(f"{flag} (Queue A item 15)")
-    if s.continual_reg_on or s.freeze_decoder:
-        todo.append("continual_reg_on / freeze_decoder (Queue A item 10)")
     if s.sort_batch and batch_windows is None:
         # windows sort their indices once, at precompute
         todo.append("sort_batch on iid batches (Queue A item 15)")
@@ -510,10 +574,11 @@ def _check_supported(s: TrainSettings, batch_sharding, batch_windows) -> None:
 
 
 def _check_modes(s: TrainSettings, feats, m_feats, n_used, pre_lookups,
-                 batch_windows, batch_indices, sr_noise16, n_iters) -> None:
+                 batch_windows, batch_indices, sr_noise16, n_iters, shadow) -> None:
     """The JAX package's gates (trainer.py:756-836): windows need their
     prerequisites, bf16 moments the kernel update, bf16 tables fused
-    windows and bf16 moments.  Raises ValueError."""
+    windows and bf16 moments, the continual reg its shadow tables and, on
+    windows, their owner flags.  Raises ValueError."""
     shapes = [tuple(f.shape) for f in feats]
     fused_windows = batch_windows is not None and batch_windows.fused
     mode = resolve_feature_update(s, fused_windows)
@@ -547,6 +612,15 @@ def _check_modes(s: TrainSettings, feats, m_feats, n_used, pre_lookups,
         total = sum(int(f.numel()) for f in feats)
         if tuple(sr_noise16.shape) != (n_iters, total):
             raise ValueError(f"sr_noise16 must be ({n_iters}, {total})")
+    if s.continual_reg_on:
+        for key in ("importance", "last_frame"):
+            tabs = None if shadow is None else shadow.get(key)
+            if tabs is None or [tuple(t.shape) for t in tabs] != shapes:
+                raise ValueError(f"continual_reg_on needs shadow[{key!r}]: one table per "
+                                 f"level of the features' shapes {shapes}")
+        if batch_windows is not None and batch_windows.owner is None:
+            raise ValueError("continual_reg_on with fused windows needs the reg owner "
+                             "flags: precompute_batch_windows(..., reg_cover=True)")
 
 
 def train_chunk(
@@ -564,6 +638,7 @@ def train_chunk(
     batch_windows: Optional[BatchWindows] = None,
     batch_indices: Optional[torch.Tensor] = None,
     sr_noise16: Optional[torch.Tensor] = None,
+    shadow: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
 ):
     """Run ``n_iters`` optimization steps, updating ``params`` and
     ``opt_state`` in place.
@@ -588,6 +663,12 @@ def train_chunk(
     version (CPU tensors) each step's 16-bit rounding noise, the levels'
     tables concatenated in row-major order — a test seam for the JAX
     package's bits.
+
+    ``shadow`` (``{"importance": [...], "last_frame": [...]}``, one table
+    per level of the features' shapes; JAX ``train_chunk``'s ``shadow``)
+    feeds ``settings.continual_reg_on``, which adds ``reg_loss`` to the aux
+    and ``lambda * reg_loss`` to ``total_loss``.  The tables are read, never
+    written; ``last_frame`` must not alias the trained features.
 
     Returns (params, opt_state, {"mean": aux means, "last": last aux}), the
     aux values 0-dim tensors on the device.
@@ -616,10 +697,15 @@ def train_chunk(
     device = feats[0].device
     n_used = list(s.n_used) if s.n_used is not None else [int(f.shape[0]) for f in feats]
     _check_modes(s, feats, m_feats, n_used, pre_lookups, batch_windows, batch_indices,
-                 sr_noise16, n_iters)
+                 sr_noise16, n_iters, shadow)
     grads_bf16 = m_feats[0].dtype == torch.bfloat16
     params_bf16 = feats[0].dtype == torch.bfloat16
     lr_scale, wd = make_group_trees(params, s.lr_level_reduce_ratio, s.weight_decay)
+    if s.freeze_decoder:
+        # zero decoder lr = frozen; their Adam state still advances
+        for k in lr_scale:
+            if k.split(".", 1)[0] in ("geo", "sem"):
+                lr_scale[k] = 0.0
     dense = dense_params(params)
     geo: Decoder = params["geo"]
 
@@ -641,7 +727,7 @@ def train_chunk(
             found = [pre_lookups[i][1][idx] for i in range(len(s.levels))]
             G = _gather_rows(feats, corners)
         else:
-            corners, found, G = _lookup_rows(tables, feats, batch["coord"], s)
+            corners, found, G = lookup_rows(tables, feats, batch["coord"], s.levels)
         for p in dense.values():
             p.grad = None
 
@@ -653,6 +739,14 @@ def train_chunk(
                     lr_scale, wd, b1=0.9, b2=0.99, eps=s.adam_eps)
         bc1, bc2 = bias_corrections(opt_state.step)
         grads = [g_i.grad for g_i in G]
+        if s.continual_reg_on:
+            if batch_windows is not None:
+                owner = [o[wsel] for o in batch_windows.owner]
+            else:
+                owner = [owner_flags(c, f) for c, f in zip(corners, found)]
+            grads, reg = _reg_fold(s, shadow, corners, G, grads, owner)
+            aux["reg_loss"] = reg
+            aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
         kw = dict(eps=s.adam_eps, grads_bf16=grads_bf16)
         if batch_windows is not None and batch_windows.fused:
             noise = None

@@ -781,3 +781,72 @@ def test_mesher_card_equals_cpu_bit_for_bit(cuda_device):
     assert v0.triangles.shape[0] > 0
     np.testing.assert_array_equal(v0.triangles, v1.triangles)
     np.testing.assert_array_equal(v0.vertices, v1.vertices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_windows", [False, True], ids=["iid-K1", "fused-windows-K2"])
+def test_reg_steps_card_equals_cpu(cuda_device, fused_windows):
+    """The continual-learning reg folded into the update's entries at
+    lambda 1e6 (entries ~1e6 times the loss's): 5 steps on the card (K1 per
+    level on iid batches, or K2 on fused windows with the owner flags)
+    against the same steps on the CPU (plain versions), from the same map,
+    shadow and batches; adam_eps 1e-3.  p and the reg loss rtol 1e-4 /
+    1e-5; the moments at an atol of 1e-6 of their largest value."""
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import init_opt_state
+
+    rng = np.random.default_rng(6)
+    n = 6000
+    dirs = rng.standard_normal((n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    disp = rng.uniform(-0.04, 0.04, (n, 1))
+    coord = (dirs * (0.5 + disp)).astype(np.float32)
+    label = disp[:, 0].astype(np.float32)
+    cfg = SHINEConfig()
+    cfg.tree_level_world, cfg.tree_level_feat, cfg.bs, cfg.adam_eps = 7, 3, 512, 1e-3
+    cfg.derive()
+    idx = torch.from_numpy(rng.integers(0, n, (5, cfg.bs)))
+    out = {}
+    for side, device in (("cpu", "cpu"), ("card", cuda_device)):
+        grid = HashGridHost(7, 3, D, 0.05, seed=3, init_node_capacity=1 << 12,
+                            init_corner_capacity=1 << 12, device=device)
+        grid.update(coord, incremental_on=True)
+        s = trainer.TrainSettings.from_config(
+            cfg, grid.levels, sigma_sigmoid=0.05, continual_reg_on=True, lambda_forget=1e6,
+            loss_reduction="sum", feature_update="pallas", n_used=trainer.used_rows_for(grid))
+        params = trainer.init_params(cfg, grid, torch.Generator(device).manual_seed(0))
+        if side == "cpu":
+            init = {k: {n: t.clone() for n, t in params[k].state_dict().items()}
+                    for k in ("geo", "sem")}
+        for k in ("geo", "sem"):
+            params[k].load_state_dict(init[k])
+        shapes = [tuple(f.shape) for f in grid.features]
+        shadow = {"importance": [torch.from_numpy(np.abs(np.random.default_rng(l).normal(
+                      0, 0.01, sh)).astype(np.float32)).to(device) for l, sh in enumerate(shapes)],
+                  "last_frame": [f + 0.01 for f in grid.features_last_frame]}
+        pool = {"coord": torch.from_numpy(coord).to(device),
+                "sdf_label": torch.from_numpy(label).to(device),
+                "weight": torch.ones(n, device=device)}
+        kw = dict(batch_indices=idx)
+        if fused_windows:
+            pre = trainer.precompute_pool_lookups(grid.tables, pool["coord"], grid.levels,
+                                                  [sh[0] for sh in shapes])
+            kw = dict(pre_lookups=pre, batch_windows=trainer.precompute_batch_windows(
+                pre, n, None, s, shapes, fused=True, window_indices=idx, reg_cover=True))
+        ak.reset_launch_counts()
+        params, opt, aux = trainer.train_chunk(params, init_opt_state(params), grid.tables,
+                                               pool, n, 0, None, s, 5, shadow=shadow, **kw)
+        out[side] = (params, opt, aux, dict(ak.LAUNCHES))
+    (pc, oc, ac, lc), (pp, op, ap, _) = out["card"], out["cpu"]
+    assert lc["fused_adam_multi" if fused_windows else "fused_adam"] == (5 if fused_windows
+                                                                           else 15)
+    np.testing.assert_allclose(float(ac["mean"]["reg_loss"]), float(ap["mean"]["reg_loss"]),
+                               rtol=1e-5)
+    assert float(ap["last"]["reg_loss"]) > 0
+    for a, b in zip(pc["features"], pp["features"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(oc.m["features"] + oc.v["features"], op.m["features"] + op.v["features"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                   atol=max(1e-5, 1e-6 * float(b.abs().max())))

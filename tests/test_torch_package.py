@@ -33,6 +33,7 @@ def test_port_imports_without_jax():
     for m in ("train.trainer", "mesher", "eval.metrics", "eval.evaluator",
               "eval.crop_intersection", "utils.checkpoint", "utils.profiling",
               "utils.experiment", "utils.metrics_logger", "cli.common", "cli.shine_batch",
+              "cli.shine_incre", "train.importance",
               "ops.marching", "ops.native_build"):
         assert "shine_mapping_tpu_torch." + m in mods, m
     code = (

@@ -196,9 +196,9 @@ def test_train_chunk_at_reference_eps_tracks_jax(worlds):
 
 @pytest.mark.parametrize("settings_kw,call_kw", [
     (dict(feature_update="sparse"), {}), (dict(opt_adam=False), {}),
-    (dict(continual_reg_on=True), {}), (dict(ray_loss=True), {}),
+    (dict(normal_loss_on=True), {}), (dict(ray_loss=True), {}),
     (dict(sort_batch=True), {}), ({}, dict(pre_lookups=(), batch_sharding=object())),
-], ids=["sparse", "sgd", "reg", "ray_loss", "sort_batch", "pre_lookups"])
+], ids=["sparse", "sgd", "normal_loss", "ray_loss", "sort_batch", "pre_lookups"])
 def test_train_chunk_rejects_unported_options(worlds, settings_kw, call_kw):
     """Options of later slices raise NotImplementedError.  (Pool lookups are
     ported; with multi-GPU batch sharding they are not.)"""
