@@ -70,7 +70,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. agreement: a small world trained on the card and on the CPU (the plain
    versions) from the same weights and batches: both iid updates, and bf16
    moments on both window layouts; the bf16-table mode (whose rounding
-   bits differ between the two) within a loss band;
+   bits differ between the two) within a loss band.  Then the trainer's
+   other update modes and terms, 20 steps each from the same weights,
+   batches and near points (``OPTION_CASES``): sparse lazy Adam alone and
+   with the continual reg, the semantic head on K1 (iid) and on K2 with
+   bf16 moments (fused windows), consistency with its near points' rows as
+   extra K1 entries, normal + projective correction + sdf_l1, dr_neus on a
+   ray-major pool, a time-conditioned decoder, dense autodiff Adam and
+   SGD; every K1 / K2 launch of the semantic and consistency cases held
+   against its plain version (``_KernelCheck``);
 6. map: the port's batch CLI (``cli.shine_batch.run_shine_mapping_batch``)
    end to end on tests/synth.py's analytic world (20 frames of 64 x 1024
    rays, exact ground truth), launch counts zeroed before and read after
@@ -98,7 +106,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and the final mesh's F-score within 5 points of the JAX driver's on the
    CPU (``JAX_INCRE_FSCORE``).  After run C, card = CPU on its final state:
    the importance sweep, then 5 reg steps with every K1 launch held against
-   its plain version.
+   its plain version;
+8. city: semantic mapping at street scale through the batch CLI on
+   tests/synth_city.py's labelled city (seed 0, 150 frames of 1,024 x 48
+   rays, 8 x 3 blocks, parked and moving cars, a turn), with
+   experiments/demo_tpu_kitti_scale.py's config at its full width
+   (``CITY_CFG``: pc_radius 50 m, vox 0.05, leaf 0.2, world level 12, 3
+   levels, D 8, bs 4096, semantics and the moving-object filter, the bf16
+   map mode, 2^22-sample rotating sub-pools, octree meshing at 0.2 m with
+   vertex semantics).  Run F: that config as written (K2 bf16 p + SR on
+   fused windows); run G: ``feature_update: sparse`` (f32 tables, iid
+   batches, no kernel).  Cuts (``[city] reduced:`` lines): iters 20,000 ->
+   4,000, pool_rotate_iters 2,000 -> 1,000, the ground truth's rescans every
+   15th pose at the scans' resolution.  Each run: its launches (F: one K2
+   bf16-p launch a step and one entry prep per device pool; G: none), at
+   least one rotation, finite losses with sem_loss falling, Chamfer-L1 <
+   0.15 m and F-score > 75 % against the ground truth, >= 80 % of the
+   vertices near one labelled class carrying it; G's F-score within 5
+   points of F's.  ``--only agreement,city`` (any of agreement, map,
+   incre, city) runs those phases alone and prints no result line.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -384,14 +410,14 @@ def _single_rows(rows_l, sizes, n_used):
     return out
 
 
-def _check_bf16_ties(kern, plain, tabs0, n_used, names="mv"):
+def _check_bf16_ties(kern, plain, tabs0, n_used, names="mv", moved_share=0.99):
     """bf16 tables per level: bit-equal but for at most TIE_SHARE of the
     used elements, which may lie one bf16 ulp apart, plus 8 f32 ulps of the
     level's largest value (where b1 m + (1 - b1) g nearly cancels, the
     kernel's fused multiply-add and the plain version's two roundings
     differ by an f32 ulp of the terms, which is large beside the result);
-    each used head moved; headroom bit-identical.  Returns (max abs error,
-    tie share)."""
+    more than ``moved_share`` of each used head moved (None: not checked);
+    headroom bit-identical.  Returns (max abs error, tie share)."""
     import torch
 
     err, ties, total = 0.0, 0, 0
@@ -410,7 +436,8 @@ def _check_bf16_ties(kern, plain, tabs0, n_used, names="mv"):
                 f"{float(b32.reshape(-1)[worst]):.6e} at element {worst}, more than one "
                 "bf16 ulp apart")
             moved = float((b[:nu].float() != t0[:nu].float()).float().mean())
-            assert moved > 0.99, f"{name}: only {moved:.4f} of the used head moved"
+            assert moved_share is None or moved > moved_share, \
+                f"{name}: only {moved:.4f} of the used head moved"
             assert torch.equal(a[nu:].float(), t0[nu:].float()), f"{name}: headroom changed"
     assert ties <= TIE_SHARE * total, f"{ties} of {total} bf16 moments differ"
     return err, ties / total
@@ -1320,6 +1347,268 @@ def phase_agreement():
               f"{cpu[2]:.6f}; {what}")
 
 
+# (label, settings, pool fields, a shadow for the reg, windows layout)
+OPTION_CASES = (
+    ("sparse lazy Adam", dict(feature_update="sparse"), (), False, None),
+    ("sparse lazy Adam + continual reg",
+     dict(feature_update="sparse", continual_reg_on=True, lambda_forget=1e3), (), True, None),
+    ("semantic head, K1 on iid batches", dict(semantic_on=True), ("sem",), False, None),
+    ("semantic head, K2 with bf16 moments on fused windows", dict(semantic_on=True),
+     ("sem",), False, "fused"),
+    ("consistency, K1 with near-point entries", dict(consistency_loss_on=True), (), False,
+     None),
+    ("normal + projective correction + sdf_l1",
+     dict(normal_loss_on=True, proj_correction_on=True, main_loss_type="sdf_l1"),
+     ("normal",), False, None),
+    ("dr_neus on a ray pool", dict(ray_loss=True, main_loss_type="dr_neus"), ("ray",), False,
+     None),
+    ("time-conditioned decoder", dict(time_conditioned=True), ("time",), False, None),
+    ("dense autodiff Adam", dict(feature_update="dense"), (), False, None),
+    ("SGD", dict(opt_adam=False), (), False, None),
+)
+
+
+class _KernelCheck:
+    """While active, every K1 (``fused_adam``) and K2 (``fused_adam_multi``)
+    launch on CUDA tensors is held against its plain version on the same
+    inputs: phase 2's tolerance plus each element's sum-order spread
+    (:func:`_sum_order_spread`, the card's atomics sum a row's entries in no
+    fixed order), bit-equal on rows with at most one entry, headroom
+    untouched; bf16 moments bit-equal but for TIE_SHARE one-ulp ties."""
+
+    def __init__(self):
+        from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+        self.ak, self.n, self.err = ak, 0, 0.0
+        self.inner = (ak.fused_adam, ak.fused_adam_multi)
+
+    def __enter__(self):
+        ak, (k1, k2) = self.ak, self.inner
+
+        def one(p, m, v, rows, grads, lr, bc1, bc2, n_used=None, **kw):
+            return self._check([p], [m], [v], [rows], [grads], lr, bc1, bc2, [1.0],
+                               [p.shape[0] if n_used is None else n_used], kw,
+                               lambda: k1(p, m, v, rows, grads, lr, bc1, bc2, n_used, **kw))
+
+        def multi(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used=None, **kw):
+            nu = [p.shape[0] for p in ps] if n_used is None else list(n_used)
+            return self._check(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, nu, kw,
+                               lambda: k2(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales,
+                                          n_used, **kw))
+
+        ak.fused_adam, ak.fused_adam_multi = one, multi
+        return self
+
+    def __exit__(self, *exc):
+        self.ak.fused_adam, self.ak.fused_adam_multi = self.inner
+
+    def _check(self, ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used, kw, launch):
+        import torch
+
+        ak = self.ak
+        if ps[0].device.type != "cuda":
+            return launch()
+        t0 = [[x.clone() for x in tabs] for tabs in (ps, ms, vs)]
+        plain = [[x.clone() for x in tabs] for tabs in (ps, ms, vs)]
+        ak.fused_adam_multi_plain(*plain, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used, **kw)
+        dropped = launch()
+        assert not int(dropped), "entries dropped"
+        sizes = [p.shape[0] for p in ps]
+        single = _single_rows([r.reshape(-1) for r in rows_l], sizes, n_used)
+        step = {k: kw[k] for k in ("eps", "grads_bf16") if k in kw}
+        spread = [[], [], []]
+        for l in range(len(ps)):
+            sp = _sum_order_spread([t0[0][l], t0[1][l].float(), t0[2][l].float()], rows_l[l],
+                                   g_l[l], lr * lr_scales[l], bc1, bc2, n_used[l], **step)
+            for t in range(3):
+                spread[t].append(sp[t][0])
+        if ms[0].dtype == torch.bfloat16:
+            _check_f32([ps], [plain[0]], [t0[0]], n_used, names="p", single=single,
+                       moved_share=None, scale_of="after", spread=[spread[0]])
+            _check_bf16_ties([ms, vs], plain[1:], t0[1:], n_used, moved_share=None)
+        else:
+            _check_f32([ps, ms, vs], plain, t0, n_used, single=single, moved_share=None,
+                       scale_of="after", spread=spread)
+        for a, b in zip(ps, plain[0]):
+            self.err = max(self.err, float((a.float() - b.float()).abs().max())
+                           / max(float(b.float().abs().max()), 1e-30))
+        self.n += 1
+        return dropped
+
+
+def _option_world(fields, n=4000, S=7):
+    """phase_agreement's sphere pool with the fields a case reads: class
+    labels by height (building above z = 0, road below), outward normals,
+    origins at the centre, timestamps 0-4; ``ray``: a ray-major pool of
+    n / 4 rays of S samples each."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.data.dataset import SamplePool
+
+    rng = np.random.default_rng(2)
+    dirs = rng.standard_normal((n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    if "ray" in fields:
+        R = n // 4
+        ratios = np.sort(rng.uniform(0.3, 1.1, (R, S)), axis=1)
+        coord = (dirs[:R, None, :] * (ratios * 0.5)[:, :, None]).reshape(-1, 3)
+        return SamplePool(coord=coord.astype(np.float32),
+                          sdf_label=np.zeros(R * S, np.float32),
+                          weight=np.ones(R * S, np.float32),
+                          sample_depth=(ratios * 0.5).reshape(-1).astype(np.float32),
+                          ray_depth=np.full(R, 0.5, np.float32),
+                          origin=np.zeros((R * S, 3), np.float32),
+                          time=np.zeros(R * S, np.float32)), dirs * 0.5
+    disp = rng.uniform(-0.04, 0.04, (n, 1))
+    surf = dirs * (0.5 + disp)
+    free = dirs * rng.uniform(0.2, 0.45, (n, 1))
+    coord = np.concatenate([surf, free]).astype(np.float32)
+    pool = SamplePool(
+        coord=coord,
+        sdf_label=np.concatenate([disp[:, 0], np.linalg.norm(free, axis=1) - 0.5]
+                                 ).astype(np.float32),
+        weight=np.concatenate([np.ones(n), -np.ones(n)]).astype(np.float32),
+        origin=np.zeros((2 * n, 3), np.float32),
+        time=(rng.integers(0, 5, 2 * n).astype(np.float32) if "time" in fields
+              else np.zeros(2 * n, np.float32)))
+    if "sem" in fields:
+        pool.sem_label = np.where(coord[:, 2] > 0, 13, 9).astype(np.int32)
+    if "normal" in fields:
+        pool.normal_label = (coord / np.linalg.norm(coord, axis=1, keepdims=True)
+                             ).astype(np.float32)
+    return pool, surf
+
+
+def phase_agreement_options(steps=20, cases=OPTION_CASES):
+    """Phase 5's second half: the trainer's other update modes and loss
+    terms on the card against the CPU (plain versions), from the same
+    weights on the same batches (and near points), at adam_eps 1e-3:
+    loss rtol 1e-4, f32 parameters, moments and decoders rtol 1e-4, atol
+    1e-5 (under the reg the moments' atol is also 1e-6 of each table's
+    largest: they sum large terms of both signs, as in phase 7); bf16
+    moments as phase_agreement holds them.  The consistency case runs
+    ``steps // 4`` steps: its loss, 1 - cos of two point gradients through
+    second derivatives, carries float rounding on tenfold every few steps
+    (scripts/consistency_spread.py on an NVIDIA H100 80GB HBM3: the card
+    against itself from the same start 1.5e-8, 1e-7 and 1.2e-6 of p after
+    1, 5 and 20 steps, against the CPU 1.8e-7, 5.3e-7 and 8.9e-6, where the
+    plain, eikonal and dense cases stay within 2.3e-8 after 20; from
+    another start this check at 20 steps found 1.6 % of p past rtol 1e-4),
+    and within 5 steps it holds to the same tolerance as the others.  Every K1 / K2 launch of the
+    semantic and consistency cases is held against its plain version
+    (:class:`_KernelCheck`)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import init_opt_state
+
+    checked = {}
+    for label, over, fields, reg, layout in cases:
+        pool, surf = _option_world(fields)
+        cfg = SHINEConfig()
+        cfg.tree_level_world, cfg.tree_level_feat, cfg.bs, cfg.lr = 7, 3, 1024, 0.01
+        cfg.adam_eps = 1e-3
+        cfg.time_conditioned = over.get("time_conditioned", False)
+        if "ray" in fields:
+            cfg.bs, cfg.surface_sample_n, cfg.free_sample_n, cfg.clearance_sample_n = 128, 5, 2, 0
+        cfg.derive()
+        n_steps = steps // 4 if over.get("consistency_loss_on") else steps
+        rng = np.random.default_rng(7)
+        B = cfg.bs * (7 if "ray" in fields else 1)
+        hi = len(pool) // 7 if "ray" in fields else len(pool)
+        kw0 = {"batch_indices": torch.from_numpy(rng.integers(0, hi, (n_steps, cfg.bs)))}
+        if over.get("consistency_loss_on"):
+            cnt = min(cfg.consistency_count, B)
+            r = cfg.consistency_range * cfg.scale
+            kw0["near_indices"] = torch.from_numpy(rng.integers(0, B, (n_steps, cnt)))
+            kw0["near_shifts"] = torch.from_numpy(
+                rng.uniform(-r, r, (n_steps, cnt, 3)).astype(np.float32))
+        out, init = {}, None
+        for device in ("cpu", DEVICE):
+            grid = HashGridHost(7, 3, 8, 0.05, seed=3, init_node_capacity=1 << 12,
+                                init_corner_capacity=1 << 12, device=device)
+            grid.update(surf)
+            s = trainer.TrainSettings.from_config(
+                cfg, grid.levels, sigma_sigmoid=0.05,
+                **dict(dict(feature_update="pallas", n_used=trainer.used_rows_for(grid)),
+                       **over))
+            params = trainer.init_params(cfg, grid, torch.Generator(device).manual_seed(0))
+            if init is None:  # the CPU run's initial decoders, for both runs
+                init = {k: copy.deepcopy(params[k].state_dict()) for k in ("geo", "sem")}
+            for k in ("geo", "sem"):
+                params[k].load_state_dict(init[k])
+            opt = init_opt_state(params, moments_bf16=layout is not None)
+            dev, nv = trainer.pool_to_device(pool, len(pool), device=device, settings=s)
+            kw = dict(kw0)
+            if reg:
+                g = torch.Generator().manual_seed(5)
+                kw["shadow"] = {
+                    "importance": [torch.rand(f.shape, generator=g).to(device)
+                                   for f in params["features"]],
+                    "last_frame": [(f.cpu() + 0.01 * torch.randn(f.shape, generator=g)).to(device)
+                                   for f in params["features"]]}
+            if layout is not None:
+                pre = trainer.precompute_pool_lookups(grid.tables, dev["coord"], grid.levels,
+                                                      [f.shape[0] for f in grid.features])
+                widx = torch.randperm(nv, generator=torch.Generator().manual_seed(4))
+                widx = widx[: (nv // cfg.bs) * cfg.bs].reshape(-1, cfg.bs)
+                win = trainer.precompute_batch_windows(
+                    pre, nv, None, s, [tuple(f.shape) for f in params["features"]],
+                    fused=True, window_indices=widx)
+                kw = dict(pre_lookups=pre, batch_windows=win)
+            check = _KernelCheck()
+            ak.reset_launch_counts()
+            t0 = time.perf_counter()
+            with check:
+                params, opt, aux = trainer.train_chunk(params, opt, grid.tables, dev, nv, 0,
+                                                       None, s, n_steps, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            out[device] = (params, opt, {k: float(v) for k, v in aux["mean"].items()},
+                           time.perf_counter() - t0, dict(ak.LAUNCHES), check)
+        (pc, oc, ac, tc, lc, kc), (pp, op, ap, tp, _, _) = out[DEVICE], out["cpu"]
+        for k in ap:
+            np.testing.assert_allclose(ac[k], ap[k], rtol=1e-4, err_msg=f"{label}: {k}")
+        for a, b in zip(pc["features"], pp["features"]):
+            a = a.cpu()
+            if layout is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=2e-4)
+                share = float(torch.isclose(a, b, rtol=1e-4, atol=1e-5).float().mean())
+                assert share >= 0.999, f"{label}: only {share:.5f} of p agree"
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        if layout is None:
+            for name in ("m", "v"):
+                for a, b in zip(getattr(oc, name)["features"], getattr(op, name)["features"]):
+                    atol = max(1e-5, 1e-6 * float(b.abs().max())) if reg else 1e-5
+                    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=atol)
+        dtol = dict(rtol=1e-3, atol=1e-5) if layout is not None else dict(rtol=1e-4, atol=1e-5)
+        for grp in ("geo", "sem"):
+            for k, b in pp[grp].state_dict().items():
+                torch.testing.assert_close(pc[grp].state_dict()[k].cpu(), b, **dtol)
+        torch.testing.assert_close(pc["sigma"].detach().cpu(), pp["sigma"].detach(),
+                                   rtol=1e-4, atol=1e-5)
+        kernels = {k: n for k, n in lc.items() if n}
+        if over.get("feature_update") in ("sparse", "dense") or not over.get("opt_adam", True):
+            assert not kernels, f"{label}: kernels launched: {kernels}"
+        if (over.get("semantic_on") or over.get("consistency_loss_on")) and DEVICE != "cpu":
+            assert kc.n == n_steps * (1 if layout else 3), f"{label}: {kc.n} launches checked"
+            checked[label] = (kc.n, kc.err)
+        print(f"[agreement] {label}, {n_steps} steps: card loss {ac['total_loss']:.6f} vs CPU "
+              f"{ap['total_loss']:.6f} (" + ", ".join(f"{k} {ac[k]:.5g}" for k in ac
+                                                      if k != "total_loss")
+              + f"); parameters agree; card {tc:.2f} s, CPU {tp:.2f} s; launches {kernels}"
+              + (f"; {kc.n} kernel launches held against their plain versions, max |d p| "
+                 f"{kc.err:.3e} of each table's largest" if kc.n else ""))
+    return checked
+
+
 # ----------------------------------------------------------------- phase 6
 
 
@@ -1331,13 +1620,13 @@ EVAL_KW = dict(down_sample_res=0.05, threshold=0.2, truncation_acc=0.4, truncati
                mesh_sample_point=300_000)
 
 
-def _load_synth():
-    """tests/synth.py (numpy only) by its path: a package named ``tests``
-    elsewhere on the path must not shadow it."""
+def _load_tests_module(name):
+    """A numpy-only module of tests/ by its path (a package named ``tests``
+    elsewhere on the path must not shadow it)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "synth", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "synth.py"))
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1353,7 +1642,7 @@ def write_synth_sequence(root, n_frames=20, n_az=1024, n_el=64, seed=0):
 
     from shine_mapping_tpu_torch.data import io
 
-    synth = _load_synth()
+    synth = _load_tests_module("synth")
     rng = np.random.default_rng(seed)
     pc_dir = os.path.join(root, "velodyne")
     os.makedirs(pc_dir, exist_ok=True)
@@ -1836,7 +2125,371 @@ def phase_incre(n_frames=20, n_az=1024, n_el=64):
     return launches
 
 
+# ----------------------------------------------------------------- phase 8
+
+
+# experiments/demo_tpu_kitti_scale.py's config (its lines 39-118), the shape
+# of the reference's config/kitti/docker_kitti_batch.yaml: pc_radius 50 m,
+# vox 0.05 m, leaf 0.2 m, world level 12, 3 levels, D 8, 2x32 MLP, bs 4096,
+# semantics and the moving-object filter on, the bf16 map mode, rotating
+# sub-pools, octree meshing at 0.2 m
+CITY_CFG = """\
+setting:
+  name: demo_city
+  output_root: {out}
+  pc_path: {root}/velodyne
+  pose_path: {root}/poses.txt
+  calib_path: {root}/calib.txt
+  label_path: {root}/labels
+  load_model: false
+  model_path: ''
+  first_frame_ref: false
+  begin_frame: 0
+  end_frame: 10000
+  every_frame: 1
+  device: {device}
+  gpu_id: '0'
+process:
+  min_range_m: 3.0
+  pc_radius_m: 50.0
+  min_z_m: -3.5
+  rand_downsample: false
+  vox_down_m: {vox}
+  rand_down_r: 0.2
+  semantic_on: true
+  filter_moving_object: true
+sampler:
+  surface_sample_range_m: 0.3
+  surface_sample_n: 3
+  free_sample_begin_ratio: 0.3
+  free_sample_end_dist_m: 0.8
+  free_sample_n: 3
+octree:
+  leaf_vox_size: {leaf}
+  tree_level_world: {world_level}
+  tree_level_feat: 3
+  feature_dim: 8
+  poly_int_on: true
+  octree_from_surface_samples: true
+decoder:
+  mlp_level: 2
+  mlp_hidden_dim: 32
+  freeze_after_frame: 0
+loss:
+  ray_loss: false
+  main_loss_type: sdf_bce
+  sigma_sigmoid_m: 0.1
+  loss_weight_on: false
+  behind_dropoff_on: false
+  ekional_loss_on: false
+  weight_e: 0.1
+continual:
+  continual_learning_reg: false
+  lambda_forget: 0
+  window_replay_on: false
+  window_radius_m: 0
+optimizer:
+  iters: {iters}
+  batch_size: {bs}
+  learning_rate: 0.01
+  weight_decay: 1.0e-07
+eval:
+  wandb_vis_on: false
+  o3d_vis_on: false
+  vis_freq_iters: {iters}
+  save_freq_iters: 0
+  mesh_freq_frame: 1
+  mc_res_m: {mc_res}
+  mc_with_octree: true
+  mc_local: false
+  mc_vis_level: 1
+  save_map: false
+tpu:
+  feature_update: pallas
+  moments_bf16: true
+  precompute_lookups: true
+  batch_windows: true
+  params_bf16: true
+  max_device_pool: {max_pool}
+  pool_rotate_iters: {rotate}
+"""
+# the demo's full-size values (vox, leaf, world level, bs, mc_res, pool budget)
+CITY_FULL = dict(vox=0.05, leaf=0.2, world_level=12, bs=4096, mc_res=0.2, max_pool=1 << 22)
+
+
+def city_config(cls, root, out, iters, rotate=2000, device=None, **over):
+    """:data:`CITY_CFG` written into ``out`` and loaded by ``cls`` (either
+    package's SHINEConfig); ``over`` replaces values of :data:`CITY_FULL`."""
+    vals = dict(CITY_FULL, **over)
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "city.yaml")
+    with open(path, "w") as f:
+        f.write(CITY_CFG.format(out=out, root=root, iters=iters, rotate=rotate,
+                                device=device or DEVICE, **vals))
+    return cls().load(path)
+
+
+# (label, what, config changes beyond CITY_CFG, the update's launch key or
+# None: no kernel)
+CITY_RUNS = (
+    ("F", "semantic, bf16 map mode (K2 + SR on fused windows)", {}, "fused_adam_multi_bf16p"),
+    ("G", "semantic, sparse lazy Adam (f32 tables, iid batches)",
+     {"feature_update": "sparse"}, None),
+)
+CITY_GAP = 5.0  # run G's F-score within this many points of run F's
+SEM_BAR = 80.0  # % of the mesh vertices near a labelled static box in its class
+SEM_NEAR = 0.1  # m
+
+
+def _city_geometry(args):
+    """Frame ``i``'s noise-free scan of the city: the first half of
+    ``synth_city.simulate_city_scan`` (the rays, the road plane, the static
+    boxes, the moving cars at the frame's positions), which draws nothing
+    at random.  Returns (world points float64, raw labels)."""
+    import numpy as np
+
+    fields, pose, i, n_az, n_el, max_range = args
+    sc = _load_tests_module("synth_city")
+    city = sc.City(**fields)
+    az = np.linspace(-np.pi, np.pi, n_az, endpoint=False)
+    el = np.linspace(np.deg2rad(-24.0), np.deg2rad(4.0), n_el)
+    aa, ee = np.meshgrid(az, el, indexing="ij")
+    dirs_s = np.stack([np.cos(ee) * np.cos(aa), np.cos(ee) * np.sin(aa), np.sin(ee)],
+                      axis=-1).reshape(-1, 3)
+    R, t = pose[:3, :3], pose[:3, 3]
+    dirs = dirs_s @ R.T
+    origins = np.tile(t[None, :], (dirs.shape[0], 1))
+    dz = dirs[:, 2]
+    tp = (0.0 - origins[:, 2]) / np.where(np.abs(dz) < 1e-9, 1e-9, dz)
+    t_best = np.where((tp > 0.1) & (dz < 0), tp, np.inf)
+    label = np.full(dirs.shape[0], sc.ROAD_RAW, np.int64)
+    tb, jb, okb = sc._ray_boxes(origins, dirs, city.bmin, city.bmax)
+    closer = okb & (tb < t_best)
+    t_best = np.where(closer, tb, t_best)
+    label = np.where(closer, city.blabel[jb], label)
+    mmin, mmax = city.moving_boxes(i)
+    tm, jm, okm = sc._ray_boxes(origins, dirs, mmin, mmax)
+    closer = okm & (tm < t_best)
+    t_best = np.where(closer, tm, t_best)
+    label = np.where(closer, sc.MOVING_CAR_RAW, label)
+    valid = np.isfinite(t_best) & (t_best < max_range)
+    return origins[valid] + dirs[valid] * t_best[valid][:, None], label[valid]
+
+
+def _city_gt(args):
+    fields, root, n_frames, every, n_az, n_el = args
+    sc = _load_tests_module("synth_city")
+    return sc.city_gt_points(sc.City(**fields), root, n_frames, every=every, n_az=n_az,
+                             n_el=n_el, max_range=45.0)
+
+
+def write_city(root, n_frames=150, n_az=1024, n_el=48, blocks=(8, 3), gt_every=15, workers=8):
+    """tests/synth_city.py's labelled city in KITTI layout, the files
+    ``make_city_dataset(root, n_frames, seed=0, ...)`` writes byte for byte:
+    the scans' geometry (which draws nothing at random) cast by ``workers``
+    processes, then in frame order each frame's noise from the one seeded
+    generator and the sensor-frame transform, as ``simulate_city_scan``
+    does them.  And its ground truth (``city_gt_points``): rescans of the
+    static surfaces from every ``gt_every``-th pose at the scans'
+    resolution, within 45 m, cast beside them (``workers`` 0: all in this
+    process).  Returns (city, gt.ply's path, points written, moving-car
+    points)."""
+    import contextlib
+    import multiprocessing
+
+    import numpy as np
+
+    from shine_mapping_tpu_torch.data import io
+
+    sc = _load_tests_module("synth_city")
+    city = sc.build_city(0, n_blocks_x=blocks[0], n_blocks_y=blocks[1])
+    poses = sc.city_trajectory(n_frames)
+    pc_dir, lb_dir = os.path.join(root, "velodyne"), os.path.join(root, "labels")
+    os.makedirs(pc_dir, exist_ok=True)
+    os.makedirs(lb_dir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    n_pts = n_mov = 0
+    # the City by its fields: a class of a module loaded by path does not pickle
+    fields = dict(vars(city))
+    gt_job = [(fields, root, n_frames, gt_every, n_az, n_el)]
+    with (multiprocessing.get_context("spawn").Pool(workers) if workers
+          else contextlib.nullcontext()) as pool:
+        gt = pool.map_async(_city_gt, gt_job) if workers else None
+        scans = (pool.imap if workers else map)(
+            _city_geometry, [(fields, T, i, n_az, n_el, 70.0) for i, T in enumerate(poses)])
+        for i, (T, (pts_w, raw)) in enumerate(zip(poses, scans)):
+            pts_w = pts_w + rng.normal(0, 0.008, pts_w.shape)
+            pts = ((pts_w - T[:3, 3][None, :]) @ T[:3, :3]).astype(np.float32)
+            np.concatenate([pts, np.zeros((pts.shape[0], 1), np.float32)], axis=1).tofile(
+                os.path.join(pc_dir, f"{i:06d}.bin"))
+            raw.astype(np.uint32).tofile(os.path.join(lb_dir, f"{i:06d}.label"))
+            n_pts += raw.size
+            n_mov += int((raw == sc.MOVING_CAR_RAW).sum())
+        gt = gt.get()[0] if workers else _city_gt(gt_job[0])
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(str(v) for v in np.eye(4)[:3].reshape(-1)) + "\n")
+    with open(os.path.join(root, "poses.txt"), "w") as f:
+        for T in poses:
+            f.write(" ".join(str(v) for v in T[:3].reshape(-1)) + "\n")
+    gt_path = os.path.join(root, "gt.ply")
+    io.write_ply(gt_path, io.PointCloud(points=gt))
+    return city, gt_path, n_pts, n_mov
+
+
+def vertex_semantics_share(mesh_path, city, device):
+    """Of the mesh's vertices within SEM_NEAR of exactly one class of
+    labelled static surface (a box of the city, or the road plane z = 0),
+    the share (%) whose colour is that class's (raw labels mapped to
+    classes by ``data/semantic_kitti.py``).  Returns (share, vertices
+    counted, vertices)."""
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.data import io
+    from shine_mapping_tpu_torch.data.semantic_kitti import labels_to_colors, map_labels
+
+    mesh = io.read_ply(mesh_path)
+    v = torch.from_numpy(mesh.vertices.astype(np.float32)).to(device)
+    rgb = np.round(mesh.vertex_colors * 255).astype(np.int64)
+    palette = np.round(labels_to_colors(np.arange(21)) * 255).astype(np.int64)
+    key = lambda c: (c[..., 0] * 256 + c[..., 1]) * 256 + c[..., 2]  # noqa: E731
+    lut = {int(k): c for c, k in enumerate(key(palette))}
+    got = torch.from_numpy(np.array([lut.get(int(k), -1) for k in key(rgb)])).to(device)
+    bmin = torch.from_numpy(city.bmin.astype(np.float32)).to(device)
+    bmax = torch.from_numpy(city.bmax.astype(np.float32)).to(device)
+    bcls = torch.from_numpy(map_labels(city.blabel.astype(np.uint32))).to(device)
+    road = int(map_labels(np.array([_load_tests_module("synth_city").ROAD_RAW], np.uint32))[0])
+    n_ok = n_counted = 0
+    for a in range(0, v.shape[0], 1 << 15):
+        x = v[a:a + (1 << 15)]
+        d = torch.linalg.norm(torch.clamp(torch.maximum(bmin[None] - x[:, None], x[:, None]
+                                                        - bmax[None]), min=0), dim=-1)
+        near = d <= SEM_NEAR  # (n, boxes)
+        cls = torch.where(near, bcls[None], -1)
+        lo = torch.where(near, bcls[None], 1 << 20).min(dim=1).values
+        hi = cls.max(dim=1).values
+        on_road = x[:, 2].abs() <= SEM_NEAR
+        lo = torch.where(on_road, torch.minimum(lo, torch.full_like(lo, road)), lo)
+        hi = torch.where(on_road, torch.maximum(hi, torch.full_like(hi, road)), hi)
+        one = (lo == hi) & (hi >= 0)  # near surfaces of exactly one class
+        n_counted += int(one.sum())
+        n_ok += int((one & (got[a:a + (1 << 15)] == hi)).sum())
+    return 100.0 * n_ok / max(n_counted, 1), n_counted, int(v.shape[0])
+
+
+def _city_run(label, what, cfg, gt_path, city, launch_key):
+    """One run of the port's batch CLI on the city, launch counts zeroed just
+    before it and read just after; its checks (module doc).  Returns (the
+    run's numbers, launch counts)."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.cli.shine_batch import run_shine_mapping_batch
+    from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.utils import profiling
+
+    ak.reset_launch_counts()  # this path of the main path starts here
+    t0 = time.perf_counter()
+    run_path, grid, params = run_shine_mapping_batch(cfg=cfg)
+    counts = dict(ak.LAUNCHES)  # read right after the path
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    rot = int(recs[-1]["pool/rotations"])
+    if launch_key is None:
+        assert not any(counts.values()), f"run {label}: kernels launched: {counts}"
+    else:
+        assert counts[launch_key] == cfg.iters, \
+            f"run {label}: {counts[launch_key]} {launch_key} launches, want {cfg.iters}"
+        # one window stack (and its entry prep) per device pool
+        assert counts["entry_prep"] == rot + 1, \
+            f"run {label}: {counts['entry_prep']} preps, want {rot + 1}"
+        others = {k: n for k, n in counts.items() if k not in (launch_key, "entry_prep") and n}
+        assert not others, f"other kernels launched during run {label}: {others}"
+        assert grid.features[0].dtype.itemsize == 2, f"run {label} did not keep bf16 tables"
+    assert rot >= 1, f"run {label}: no pool rotation"
+    for r in recs:
+        assert all(np.isfinite(v) for k, v in r.items() if k.startswith("loss/")), r
+    sem0, sem1 = recs[0]["loss/sem_loss"], recs[-1]["loss/sem_loss"]
+    assert sem1 < sem0, f"run {label}: sem_loss {sem0} -> {sem1} did not fall"
+    rec = recs[-1]
+    ms = [r["timing(s)/per_iter"] * 1e3 for r in recs]
+    peaks = {k: round(v / 2**30, 3) for k, v in profiling.last_hbm_monitor.samples.items()}
+    mesh_path = os.path.join(run_path, f"mesh/mesh_iter_{cfg.iters}.ply")
+    m = eval_mesh(mesh_path, gt_path, **EVAL_KW)
+    share, counted, n_vert = vertex_semantics_share(mesh_path, city, DEVICE)
+    out = {"ms_step": float(np.median(ms[1:] or ms)), "wall_s": wall,
+           "fscore": m["F-score (%)"], "chamfer": m["Chamfer_L1 (m)"], "sem_share": share,
+           "peak_gb": max(peaks.values())}
+    print(f"[city] run {label} ({what}): data phase {rec['phase(s)/data']:.2f} s, pool "
+          f"{int(rec['pool_samples'])} samples in sub-pools of {cfg.max_device_pool} "
+          f"({rot} rotations); map corners per level {grid.corner_counts}, tables "
+          f"{[f.shape[0] for f in grid.features]} rows {grid.features[0].dtype}; {cfg.iters} "
+          f"steps at {out['ms_step']:.3f} ms/step (median of the {len(ms) - 1} chunks after "
+          f"the first; first {ms[0]:.3f}); launches "
+          f"{ {k: n for k, n in counts.items() if n} }; sem_loss {sem0:.4f} -> {sem1:.4f}, "
+          f"total {recs[0]['loss/total_loss']:.4f} -> {rec['loss/total_loss']:.4f}; peak "
+          f"device memory by phase (GiB) {peaks}; run {wall:.1f} s")
+    print(f"[city] run {label}: mesh {int(rec['mesh/vertices'])} vertices, "
+          f"{int(rec['mesh/triangles'])} triangles; meshing "
+          + ", ".join(f"{k} {rec['mesh(s)/' + k]:.3f} s"
+                      for k in ("query", "readback", "marching", "finalize")))
+    print(f"[city] run {label}: eval_mesh F-score {m['F-score (%)']:.3f} %, precision "
+          f"{m['Precision [Accuracy] (%)']:.3f} %, recall {m['Recall [Completeness] (%)']:.3f} "
+          f"%, Chamfer-L1 {m['Chamfer_L1 (m)']:.4f} m (bars: < {MAP_BARS[0]} m, > "
+          f"{MAP_BARS[1]} %); vertex semantics {share:.2f} % of the {counted} of {n_vert} "
+          f"vertices within {SEM_NEAR} m of one labelled class carry it (bar: >= {SEM_BAR} %)")
+    assert m["Chamfer_L1 (m)"] < MAP_BARS[0] and m["F-score (%)"] > MAP_BARS[1], \
+        f"run {label}: map quality under the bars: {m}"
+    assert share >= SEM_BAR, f"run {label}: vertex semantics {share:.2f} % < {SEM_BAR} %"
+    return out, counts
+
+
+def phase_city(n_frames=150, iters=4000, rotate=1000, n_az=1024, n_el=48, blocks=(8, 3),
+               gt_every=15, **small):
+    """Phase 8: semantic mapping of the 150-frame city (module doc).
+    ``small`` (a rehearsal on the CPU) replaces values of CITY_FULL."""
+    import tempfile
+
+    from shine_mapping_tpu_torch.config import SHINEConfig
+
+    launches, runs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="smoke_city_") as tmp:
+        root = os.path.join(tmp, "city")
+        t0 = time.perf_counter()
+        city, gt_path, n_pts, n_mov = write_city(root, n_frames, n_az, n_el, blocks, gt_every)
+        print(f"[city] tests/synth_city.py world: {n_frames} frames of {n_el} x {n_az} rays, "
+              f"{blocks[0]} x {blocks[1]} blocks, {n_pts} points ({n_mov} on moving cars), "
+              f"{len(city.blabel)} labelled static boxes, ground truth from every "
+              f"{gt_every}th pose; written in {time.perf_counter() - t0:.1f} s")
+        print(f"[city] reduced: iters 20000 -> {iters}, pool_rotate_iters 2000 -> {rotate}, "
+              f"ground truth every 5th pose at 2048 x 96 -> every {gt_every}th at {n_az} x "
+              f"{n_el}" + (f", frames 150 -> {n_frames}" if n_frames != 150 else "")
+              + (f"; rehearsal values {small}" if small else "")
+              + "; widths as written (experiments/demo_tpu_kitti_scale.py:39-118)")
+        for label, what, over, key in CITY_RUNS:
+            cfg = city_config(SHINEConfig, root, os.path.join(tmp, label), iters,
+                              rotate=rotate, **small)
+            for k, v in over.items():
+                setattr(cfg, k, v)
+            runs[label], counts = _city_run(label, what, cfg, gt_path, city, key)
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+    gap = abs(runs["G"]["fscore"] - runs["F"]["fscore"])
+    print(f"[city] run G's F-score {runs['G']['fscore']:.3f} % vs run F's "
+          f"{runs['F']['fscore']:.3f} %: {gap:.3f} points apart (bar: <= {CITY_GAP})")
+    assert gap <= CITY_GAP, f"run G {gap:.3f} points from run F"
+    return launches, runs
+
+
 # ----------------------------------------------------------------- main
+
+
+# phases that run alone with ``--only`` (a check while developing; the
+# smoke itself is the run with no arguments)
+ALONE = {"agreement": lambda: (phase_agreement(), phase_agreement_options()),
+         "map": lambda: phase_map(), "incre": lambda: phase_incre(),
+         "city": lambda: phase_city()}
 
 
 def main() -> int:
@@ -1848,6 +2501,15 @@ def main() -> int:
         return 2
     import shine_mapping_tpu_torch  # noqa: F401  (fails outside a checkout)
     from shine_mapping_tpu_torch.config import SHINEConfig
+
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        t_start = time.perf_counter()
+        print(phase_device())
+        for name in sys.argv[2].split(","):
+            ALONE[name]()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s (phases {sys.argv[2]} only: "
+              "no result line)")
+        return 0
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1861,12 +2523,14 @@ def main() -> int:
     grid, band, params, launches = phase_train(cfg)
     phase_query(grid, band, params)
     phase_agreement()
+    phase_agreement_options()
     del grid, band, params
     map_launches = phase_map()
     incre_launches = phase_incre()
+    city_launches, _ = phase_city()
     for k in kernels:  # K1/K2: counted over the training runs and the CLI runs
         k["launches"] = (launches[k["name"]] + map_launches.get(k["name"], 0)
-                         + incre_launches.get(k["name"], 0))
+                         + incre_launches.get(k["name"], 0) + city_launches.get(k["name"], 0))
     kernels += study  # K3-K7: counted over the kernel-study programs
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} never launched on its path"

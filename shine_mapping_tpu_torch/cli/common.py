@@ -37,8 +37,6 @@ def check_supported(cfg: SHINEConfig) -> None:
         todo.append("multi-host and data-parallel runs, row-sharded windows (Queue A item 14)")
     if cfg.o3d_vis_on:
         todo.append("the visualizer, o3d_vis_on (Queue A item 15)")
-    if cfg.time_conditioned:
-        todo.append("time-conditioned maps and meshing (Queue A item 15)")
     if todo:
         raise NotImplementedError("not ported yet, see ROADMAP.md: " + "; ".join(todo))
 

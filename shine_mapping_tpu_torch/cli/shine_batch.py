@@ -11,9 +11,13 @@ map onto the training API: ``precompute_lookups`` ->
 ``grid.cast_features(torch.bfloat16)``.  It runs on ``setting.device``
 (the card unless the config says ``cpu``).
 
-Not ported yet (raise NotImplementedError naming their ROADMAP item):
-multi-host, data-parallel and row-sharded runs (Queue A item 14); the
-visualizer (``o3d_vis_on``) and time-conditioned maps (item 15).
+Every single-card training option of the JAX driver runs: the semantic
+head (vertex semantics on the meshes), the ray-major pool of the rendering
+losses (which does not rotate), and time-conditioned maps, meshed once per
+even frame at that frame's timestamp.  Not ported yet (raise
+NotImplementedError naming their ROADMAP item): multi-host, data-parallel
+and row-sharded runs (Queue A item 14); the visualizer (``o3d_vis_on``,
+item 15).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_batch <config.yaml>
@@ -139,13 +143,15 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         if rotate_pool:
             capacity = cfg.max_device_pool
             sub = pool_rng.integers(0, len(dataset.pool), capacity)
-            dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device, sub)
+            dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device, sub,
+                                                       settings)
             print(f"pool {len(dataset.pool)} > device budget {capacity}: rotating "
                   f"sub-pools every {cfg.pool_rotate_iters} iters")
         else:
             capacity = pool_capacity_for(len(dataset.pool), cfg.init_pool_capacity)
-            dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device)
-    iters_since_rotate = 0
+            dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device,
+                                                       settings=settings)
+    iters_since_rotate = n_rotations = 0
     hbm = HbmMonitor(device)
     profiling.last_hbm_monitor = hbm
     hbm.sample("upload")
@@ -216,7 +222,7 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                                       for s in chunk_starts):
             return None
         sub = pool_rng.integers(0, len(dataset.pool), capacity)
-        return _Staged(trainer.pool_to_device, dataset.pool, capacity, device, sub)
+        return _Staged(trainer.pool_to_device, dataset.pool, capacity, device, sub, settings)
 
     next_rotation = stage_rotation(start_iter)
     with timer.phase("precompute", sync=device):
@@ -237,10 +243,11 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                 if next_rotation is None:  # a resume that landed past the staging
                     next_rotation = _Staged(trainer.pool_to_device, dataset.pool, capacity,
                                             device, pool_rng.integers(0, len(dataset.pool),
-                                                                      capacity))
+                                                                      capacity), settings)
                 dev_pool, n_valid = next_rotation.result()
                 next_rotation = stage_rotation(start)
                 iters_since_rotate = 0
+                n_rotations += 1
                 pre_lookups = make_pre()  # the pool changed
                 batch_windows = make_windows(pre_lookups)
         # the chunk's batches depend only on its start iteration, so a resumed
@@ -269,6 +276,7 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
             "timing(s)/per_iter": (t1 - t0) / n,
             "samples_per_s": n * cfg.bs / max(t1 - t0, 1e-9),
             "pool_samples": len(dataset.pool),
+            "pool/rotations": n_rotations,
         })
         print(f"iter {done_iters}/{cfg.iters} loss {rec['loss/total_loss']:.4f} "
               f"({rec['samples_per_s'] / 1e6:.2f}M samples/s)")
@@ -282,15 +290,24 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         if cfg.vis_freq_iters > 0 and done_iters % cfg.vis_freq_iters == 0:
             sync_features_to_grid(grid, params)
             print("Begin mesh reconstruction from the implicit map")
-            mesh_path = f"{run_path}/mesh/mesh_iter_{done_iters}.ply"
-            map_path = f"{run_path}/map/sdf_map_iter_{done_iters}.ply"
-            with timer.phase("mesh"):
-                if cfg.mc_with_octree:
-                    mesh = mesher.recon_octree_mesh(cfg.mc_query_level, cfg.mc_res_m, mesh_path,
-                                                    map_path, cfg.save_map, cfg.semantic_on)
-                else:
-                    mesh = mesher.recon_bbx_mesh(dataset.map_bbx, cfg.mc_res_m, mesh_path,
-                                                 map_path, cfg.save_map, cfg.semantic_on)
+            # a time-conditioned map gives one mesh per even frame, at that
+            # frame's timestamp (shine_batch.py:248-264)
+            stamps = ([None] if not cfg.time_conditioned
+                      else [f for f in dataset.frame_ids() if f % 2 == 0])
+            for ts in stamps:
+                tag = f"iter_{done_iters}" + ("" if ts is None else f"_ts_{ts}")
+                mesh_path = f"{run_path}/mesh/mesh_{tag}.ply"
+                map_path = f"{run_path}/map/sdf_map_{tag}.ply"
+                mesher.ts = 0 if ts is None else ts
+                with timer.phase("mesh"):
+                    if cfg.mc_with_octree:
+                        mesh = mesher.recon_octree_mesh(cfg.mc_query_level, cfg.mc_res_m,
+                                                        mesh_path, map_path, cfg.save_map,
+                                                        cfg.semantic_on)
+                    else:
+                        mesh = mesher.recon_bbx_mesh(dataset.map_bbx, cfg.mc_res_m,
+                                                     mesh_path, map_path, cfg.save_map,
+                                                     cfg.semantic_on)
             peak = hbm.sample("mesh")
             rec.update({"mesh/vertices": mesh.vertices.shape[0],
                         "mesh/triangles": mesh.triangles.shape[0],

@@ -16,9 +16,10 @@ when ``tpu.batch_windows`` and ``windows_fused`` ask for them and they fit
 ``windows_hbm_budget_gb``, bf16 moments only where the resolved update is
 ``pallas``.  ``tpu.params_bf16`` is not read, as in the JAX driver.
 
-Not ported yet (raise NotImplementedError naming their ROADMAP item):
-multi-host and data-parallel runs (Queue A item 14); the visualizer
-(``o3d_vis_on``) and time-conditioned maps (item 15).
+Every single-card update mode runs, ``feature_update: sparse`` with the
+reg among them.  Not ported yet (raise NotImplementedError naming their
+ROADMAP item): multi-host and data-parallel runs (Queue A item 14); the
+visualizer (``o3d_vis_on``, item 15).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_incre <config.yaml>
@@ -105,7 +106,8 @@ def run_shine_mapping_incremental(config_path: str | None = None,
             n_used=trainer.used_rows_for(grid, granularity=4))
         feat_shapes = [tuple(f.shape) for f in params[FEATURES]]
         capacity = pool_capacity_for(len(dataset.pool), 1 << 17)
-        dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device)
+        dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device,
+                                                   settings=settings)
 
         # the window decision comes before the optimizer: fused windows keep
         # the kernel update under reg, which is what bf16 moments need

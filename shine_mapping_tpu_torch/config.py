@@ -262,6 +262,9 @@ class SHINEConfig:
         self.estimate_normal = opt("process", "estimate_normal", self.estimate_normal)
         self.filter_noise = opt("process", "filter_noise", self.filter_noise)
         self.semantic_on = opt("process", "semantic_on", self.semantic_on)
+        # read here, not in the JAX package (ROADMAP Queue C item 3)
+        self.filter_moving_object = opt("process", "filter_moving_object",
+                                        self.filter_moving_object)
         if self.semantic_on:
             self.label_path = setting.get("label_path", self.label_path)
 

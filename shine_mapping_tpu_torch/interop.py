@@ -26,7 +26,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .models.decoder import Decoder
+from .models.decoder import Decoder, decoder_from_state_dict
 from .train.optimizer import FEATURES, OptState, dense_params
 
 # JAX decoder leaf -> (torch parameter name, transpose?)
@@ -84,15 +84,9 @@ def _jax_decoder(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def decoder_from_jax(jax_dec: Dict[str, Any], device="cuda") -> Decoder:
-    """A JAX decoder dict -> a port :class:`Decoder` with the same weights."""
-    n_layers = sum(1 for k in jax_dec if k[0] == "w" and k[1:].isdigit())
-    w0 = np.asarray(jax_dec["w0"])
-    dec = Decoder(feature_dim=w0.shape[0], hidden_dim=w0.shape[1],
-                  mlp_level=n_layers,
-                  sem_class_count=np.asarray(jax_dec["w_sem"]).shape[1] - 1,
-                  device=device)
-    dec.load_state_dict(_decoder_state(jax_dec))
-    return dec
+    """A JAX decoder dict -> a port :class:`Decoder` with the same weights
+    (a time-conditioned one's first layer takes D + 1 inputs)."""
+    return decoder_from_state_dict(_decoder_state(jax_dec), device)
 
 
 def params_from_jax(jax_params: Dict[str, Any], device="cuda") -> Dict[str, Any]:

@@ -19,9 +19,12 @@ interpolation and the decoder sum in a fixed order, one rounded
 elementwise operation at a time, so the card and the CPU give the same
 field bit for bit.
 
-Not ported yet (raise NotImplementedError naming their ROADMAP item): the
-data-parallel ``dp_mesh`` (Queue A item 14); vertex semantics
-(``estimate_sem``) and time-conditioned maps (item 15).
+Vertex semantics (``estimate_sem``): the ``sem`` decoder's argmax at every
+vertex, queried on the device, coloured by ``labels_to_colors``, and the
+free-space (class 0) vertices dropped (utils/mesher.py:224-238).  A
+time-conditioned map is queried at the timestamp ``Mesher.ts``.  Not ported
+yet (raises NotImplementedError naming its ROADMAP item): the data-parallel
+``dp_mesh`` (Queue A item 14).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from .config import SHINEConfig
 from .data import io
+from .data.semantic_kitti import labels_to_colors
 from .models.decoder import Decoder
 from .ops.hashgrid import lookup_level_cells
 from .ops.interp import corner_weights
@@ -66,22 +70,38 @@ def _linear_in_order(x: torch.Tensor, lin: torch.nn.Linear) -> torch.Tensor:
     return acc if lin.bias is None else acc + lin.bias
 
 
-def _decode_sdf(geo: Decoder, feat: torch.Tensor) -> torch.Tensor:
-    """``-geo.sdf(feat)`` (the sign flip of utils/mesher.py:72) with every
-    sum in a fixed order, so that a mesh is the same on every device."""
+def _hidden_in_order(dec: Decoder, feat: torch.Tensor) -> torch.Tensor:
     h = feat
-    for lin in geo.layers:
+    for lin in dec.layers:
         h = torch.relu(_linear_in_order(h, lin))
-    return -_linear_in_order(h, geo.lout)[:, 0]
+    return h
+
+
+def _decode_sdf(geo: Decoder, feat: torch.Tensor, ts: Optional[float] = None) -> torch.Tensor:
+    """``-geo.sdf(feat)`` (the sign flip of utils/mesher.py:72), or
+    ``-geo.time_conditioned_sdf`` at the timestamp ``ts``, with every sum in
+    a fixed order, so that a mesh is the same on every device."""
+    if ts is not None:
+        feat = torch.cat([feat, torch.full_like(feat[:, :1], float(ts))], dim=1)
+    return -_linear_in_order(_hidden_in_order(geo, feat), geo.lout)[:, 0]
+
+
+def _decode_sem(sem: Decoder, feat: torch.Tensor) -> torch.Tensor:
+    """``sem.sem_label(feat)`` with every sum in a fixed order (int64)."""
+    logits = _linear_in_order(_hidden_in_order(sem, feat), sem.nclass_out)
+    return torch.argmax(torch.log_softmax(logits, dim=1), dim=1)
 
 
 def _infer_core(geo: Decoder, features, tables, coords: torch.Tensor,
-                levels: Tuple[int, ...], poly_on: bool, check_level: int):
-    """Direct per-point inference: (sdf, mask) at ``coords`` (N, 3)."""
+                levels: Tuple[int, ...], poly_on: bool, check_level: int,
+                ts: Optional[float] = None, sem: Optional[Decoder] = None):
+    """Direct per-point inference: (sdf, mask, sem labels or None) at
+    ``coords`` (N, 3)."""
     feat, _, found = query_feature_with_aux(coords, tables, features, levels, poly_on)
     # mc mask: node found at the checked level (all 8 corners valid,
     # utils/mesher.py:80-89)
-    return _decode_sdf(geo, feat), found[check_level]
+    return (_decode_sdf(geo, feat, ts), found[check_level],
+            None if sem is None else _decode_sem(sem, feat))
 
 
 def _lattice_core(features, tables, coord: torch.Tensor, origins_k: torch.Tensor,
@@ -139,12 +159,13 @@ def _block_offsets(vb: int, npb: int, step: float, device):
 @torch.no_grad()
 def _infer_blocks(geo: Decoder, features, tables, origins: torch.Tensor, step: float,
                   vb: int, levels, poly_on: bool, check_level: int,
-                  n_list: Optional[Sequence[int]] = None, npb: Optional[int] = None):
+                  n_list: Optional[Sequence[int]] = None, npb: Optional[int] = None,
+                  ts: Optional[float] = None):
     """SDF and mask of every point of the blocks whose origins ``origins``
     (B, 3) lists, vb^3 points a block at ``step`` apart, ``npb`` blocks a
     chunk (B a multiple of it): the node-lattice path with ``n_list``, else
-    the direct per-point path.  Block-major outputs, (B * vb^3,) each, on
-    the device."""
+    the direct per-point path; a time-conditioned decoder at ``ts``.
+    Block-major outputs, (B * vb^3,) each, on the device."""
     device = origins.device
     block = vb ** 3
     B = origins.shape[0]
@@ -158,11 +179,12 @@ def _infer_blocks(geo: Decoder, features, tables, origins: torch.Tensor, step: f
         # node assignment at block edges then matches the JAX package's
         coord = origins_k[node] + offstep
         if n_list is None:
-            s, m = _infer_core(geo, features, tables, coord, levels, poly_on, check_level)
+            s, m, _ = _infer_core(geo, features, tables, coord, levels, poly_on,
+                                  check_level, ts)
         else:
             feat, found = _lattice_core(features, tables, coord, origins_k, npb, block,
                                         levels, n_list, poly_on)
-            s, m = _decode_sdf(geo, feat), found[check_level]
+            s, m = _decode_sdf(geo, feat, ts), found[check_level]
         sdf[b0 * block:(b0 + npb) * block] = s
         mask[b0 * block:(b0 + npb) * block] = m
     return sdf, mask
@@ -191,6 +213,7 @@ class Mesher:
         self.geo_params = geo_params  # the geometry Decoder
         self.sem_params = sem_params
         self.world_scale = config.scale
+        self.ts = 0  # the query timestamp of a time-conditioned map
         self.global_transform = np.eye(4)
         # seconds by stage of the last reconstruction: query, readback,
         # marching, finalize
@@ -204,14 +227,13 @@ class Mesher:
     def _check_level(self) -> int:
         return min(self.grid.featured_level_num, self.config.mc_vis_level) - 1
 
-    def _check_supported(self, query_sem: bool = False) -> None:
-        todo = []
-        if query_sem:
-            todo.append("semantic queries and vertex semantics (Queue A item 15)")
-        if self.config.time_conditioned:
-            todo.append("time-conditioned meshing (Queue A item 15)")
-        if todo:
-            raise NotImplementedError("not ported yet, see ROADMAP.md: " + "; ".join(todo))
+    def _ts(self) -> Optional[float]:
+        return float(np.float32(self.ts)) if self.config.time_conditioned else None
+
+    def _sem(self, query_sem: bool) -> Optional[Decoder]:
+        if query_sem and self.sem_params is None:
+            raise ValueError("semantic queries need the sem decoder (sem_params)")
+        return self.sem_params if query_sem else None
 
     def _args(self):
         return (self.geo_params, list(self.grid.features), list(self.grid.tables))
@@ -222,18 +244,22 @@ class Mesher:
                      query_sem: bool = False, query_mask: bool = True):
         """Batched SDF / mask inference (utils/mesher.py:33-108) at ``coords``
         in the scaled [-1,1] system, ``bs`` points a chunk; numpy outputs
-        (sdf float64, None, mask bool)."""
-        self._check_supported(query_sem)
+        (sdf float64, sem labels int64 or None, mask bool)."""
         geo, feats, tables = self._args()
+        sem_dec = self._sem(query_sem)
         x = torch.from_numpy(np.ascontiguousarray(coords, dtype=np.float32)).to(self.device)
         n = x.shape[0]
         sdf = torch.empty(n, dtype=torch.float32, device=self.device)
         mask = torch.empty(n, dtype=torch.bool, device=self.device)
+        sem = torch.empty(n, dtype=torch.int64, device=self.device)
         for a in range(0, n, bs):
-            sdf[a:a + bs], mask[a:a + bs] = _infer_core(
+            sdf[a:a + bs], mask[a:a + bs], lab = _infer_core(
                 geo, feats, tables, x[a:a + bs], tuple(self.grid.levels),
-                self.grid.polynomial_interpolation, self._check_level())
-        return (sdf.cpu().numpy().astype(np.float64) if query_sdf else None, None,
+                self.grid.polynomial_interpolation, self._check_level(), self._ts(), sem_dec)
+            if lab is not None:
+                sem[a:a + bs] = lab
+        return (sdf.cpu().numpy().astype(np.float64) if query_sdf else None,
+                sem.cpu().numpy() if query_sem else None,
                 mask.cpu().numpy() if query_mask else None)
 
     @torch.no_grad()
@@ -243,8 +269,8 @@ class Mesher:
         """Dense-grid inference with the coordinates made on the device from
         the flat index (``get_query_from_bbx`` + ``query_points`` without the
         host grid); flat outputs in grid order."""
-        self._check_supported(query_sem)
         geo, feats, tables = self._args()
+        sem_dec = self._sem(query_sem)
         n = int(np.prod(voxel_num_xyz))
         bs = self.config.infer_bs
         step = float(np.float32(voxel_size * self.world_scale))
@@ -254,24 +280,26 @@ class Mesher:
         ny, nz = int(voxel_num_xyz[1]), int(voxel_num_xyz[2])
         sdf = torch.empty(n, dtype=torch.float32, device=self.device)
         mask = torch.empty(n, dtype=torch.bool, device=self.device)
+        sem = torch.empty(n, dtype=torch.int64, device=self.device)
         for a in range(0, n, bs):
             idx = torch.arange(a, min(a + bs, n), device=self.device)
             ijk = torch.stack([idx // (ny * nz), (idx % (ny * nz)) // nz, idx % nz], dim=1)
             coord = ijk.to(torch.float32) * step + origin_s[None, :]
-            sdf[a:a + bs], mask[a:a + bs] = _infer_core(
+            sdf[a:a + bs], mask[a:a + bs], lab = _infer_core(
                 geo, feats, tables, coord, tuple(self.grid.levels),
-                self.grid.polynomial_interpolation, self._check_level())
-        return (sdf.cpu().numpy().astype(np.float64) if query_sdf else None, None,
+                self.grid.polynomial_interpolation, self._check_level(), self._ts(), sem_dec)
+            if lab is not None:
+                sem[a:a + bs] = lab
+        return (sdf.cpu().numpy().astype(np.float64) if query_sdf else None,
+                sem.cpu().numpy() if query_sem else None,
                 mask.cpu().numpy() if query_mask else None)
 
     @torch.no_grad()
-    def query_grid_lattice(self, voxel_num_xyz, voxel_origin, voxel_size: float,
-                           query_sem: bool = False):
+    def query_grid_lattice(self, voxel_num_xyz, voxel_origin, voxel_size: float):
         """Dense-grid inference through index-space blocks of 8^3 voxels and
         their node lattices.  The grid is not node-aligned, so the lattice
         per level is floor(block extent / cell) + 2 cells a side.  Returns
         3D (nx, ny, nz) numpy arrays (sdf float32, None, mask bool)."""
-        self._check_supported(query_sem)
         t0 = time.perf_counter()
         vb = 8
         step = voxel_size * self.world_scale  # float64, as JAX sizes the lattice
@@ -289,7 +317,7 @@ class Mesher:
                                       self.device)
         sdf, mask = _infer_blocks(*self._args(), origins, step32, vb,
                                   tuple(self.grid.levels), self.grid.polynomial_interpolation,
-                                  self._check_level(), n_list, npb)
+                                  self._check_level(), n_list, npb, self._ts())
         t1 = _sync(self.device)
         sdf, mask = sdf.cpu().numpy(), mask.cpu().numpy()
         self.timing = {"query": t1 - t0, "readback": time.perf_counter() - t1}
@@ -405,7 +433,6 @@ class Mesher:
                        estimate_normal: bool = True, filter_isolated_mesh: bool = True,
                        filter_free_space_vertices: bool = True) -> io.TriangleMesh:
         """Dense bounding-box reconstruction (utils/mesher.py:253-290)."""
-        self._check_supported(estimate_sem)
         voxel_num_xyz, voxel_origin = self.grid_shape_from_bbx(bbx, voxel_size)
         mc_sdf, _, mc_mask3 = self.query_grid_lattice(voxel_num_xyz, voxel_origin, voxel_size)
         timing = dict(self.timing)
@@ -418,8 +445,8 @@ class Mesher:
         t0 = time.perf_counter()
         verts, faces = self.mc_mesh(mc_sdf, mc_mask3, voxel_size, voxel_origin)
         t1 = time.perf_counter()
-        mesh = self._finalize_mesh(verts, faces, mesh_path, estimate_normal,
-                                   filter_isolated_mesh)
+        mesh = self._finalize_mesh(verts, faces, mesh_path, estimate_sem, estimate_normal,
+                                   filter_isolated_mesh, filter_free_space_vertices)
         self.timing = {**timing, "marching": t1 - t0,
                        "finalize": time.perf_counter() - t1}
         return mesh
@@ -432,7 +459,6 @@ class Mesher:
         """Octree-tiled reconstruction at ``query_level``
         (utils/mesher.py:292-368): query per-node grid blocks through their
         node lattices, paste into a global grid, then one marching pass."""
-        self._check_supported(estimate_sem)
         nodes = self.grid.get_octree_nodes(query_level)  # centers, [-1,1]
         if nodes.shape[0] == 0:
             return io.TriangleMesh(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
@@ -467,7 +493,7 @@ class Mesher:
         sdf_pred, mc_mask = _infer_blocks(
             *self._args(), torch.from_numpy(origins).to(self.device),
             float(np.float32(mc_res_scaled)), vox_per_node, tuple(self.grid.levels),
-            self.grid.polynomial_interpolation, self._check_level(), n_list, npb)
+            self.grid.polynomial_interpolation, self._check_level(), n_list, npb, self._ts())
         t1 = _sync(self.device)
         sdf_pred = sdf_pred.cpu().numpy()
         mc_mask = mc_mask.cpu().numpy() if self.config.mc_mask_on else None
@@ -486,17 +512,31 @@ class Mesher:
         mc_origin = (min_nodes - 0.5 * (node_res - mc_res_scaled)) / self.world_scale
         verts, faces = self.mc_mesh(grid_sdf, grid_mask, mc_voxel_size, mc_origin)
         t3 = time.perf_counter()
-        mesh = self._finalize_mesh(verts, faces, mesh_path, estimate_normal,
-                                   filter_isolated_mesh)
+        mesh = self._finalize_mesh(verts, faces, mesh_path, estimate_sem, estimate_normal,
+                                   filter_isolated_mesh, filter_free_space_vertices)
         self.timing = {"query": t1 - t0, "readback": t2 - t1, "marching": t3 - t2,
                        "finalize": time.perf_counter() - t3}
         return mesh
 
-    def _finalize_mesh(self, verts, faces, mesh_path, estimate_normal,
-                       filter_isolated_mesh) -> io.TriangleMesh:
+    def estimate_vertices_sem(self, mesh: io.TriangleMesh, verts: np.ndarray,
+                              filter_free_space_vertices: bool = True) -> io.TriangleMesh:
+        """Vertex semantics and colours (utils/mesher.py:224-238): the sem
+        decoder's class at each vertex (queried on the device); free-space
+        (class 0) vertices dropped with ``filter_free_space_vertices``."""
+        _, verts_sem, _ = self.query_points(verts * self.world_scale, self.config.infer_bs,
+                                            False, True, False)
+        mesh.vertex_colors = labels_to_colors(verts_sem)
+        if filter_free_space_vertices:
+            mesh = _remove_vertices(mesh, verts_sem > 0)
+        return mesh
+
+    def _finalize_mesh(self, verts, faces, mesh_path, estimate_sem, estimate_normal,
+                       filter_isolated_mesh, filter_free_space_vertices) -> io.TriangleMesh:
         mesh = io.TriangleMesh(
             vertices=verts.astype(np.float64), triangles=faces.astype(np.int32)
         )
+        if estimate_sem and self.sem_params is not None:
+            mesh = self.estimate_vertices_sem(mesh, mesh.vertices, filter_free_space_vertices)
         if estimate_normal and mesh.vertices.shape[0] > 0:
             mesh.vertex_normals = vertex_normals(mesh.vertices, mesh.triangles)
         if filter_isolated_mesh:

@@ -1,4 +1,4 @@
-"""Adam with parameter groups and step LR decay.
+"""Adam (and SGD with momentum) with parameter groups and step LR decay.
 
 Port of ``shine_mapping_tpu/train/optimizer.py`` (reference
 ``setup_optimizer``, utils/tools.py:57-83, and ``step_lr_decay``,
@@ -97,16 +97,55 @@ def adam_update(
     state.step += 1
     bc1, bc2 = bias_corrections(state.step, b1, b2)
     for k, p in params.items():
-        g = grads.get(k)
-        g = torch.zeros_like(p) if g is None else g
-        if wd[k]:
-            g = g + wd[k] * p
-        m = state.m[k]
-        v = state.v[k]
-        m.mul_(b1).add_((1.0 - b1) * g)
-        v.mul_(b2).add_((1.0 - b2) * (g * g))
-        if lr * lr_scale[k]:
-            p.sub_(lr * lr_scale[k] * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        adam_leaf(p, grads.get(k), state.m[k], state.v[k], lr * lr_scale[k], wd[k],
+                  bc1, bc2, b1, b2, eps)
+
+
+@torch.no_grad()
+def adam_leaf(p: torch.Tensor, g: Optional[torch.Tensor], m: torch.Tensor,
+              v: torch.Tensor, lr: float, wd: float, bc1: float, bc2: float,
+              b1: float = 0.9, b2: float = 0.99, eps: float = 1e-15) -> None:
+    """One tensor's Adam step in place, at learning rate ``lr`` (the group's
+    scale applied), with the step's bias corrections ``bc1``, ``bc2``."""
+    g = torch.zeros_like(p) if g is None else g
+    if wd:
+        g = g + wd * p
+    m.mul_(b1).add_((1.0 - b1) * g)
+    v.mul_(b2).add_((1.0 - b2) * (g * g))
+    if lr:
+        p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+
+
+@torch.no_grad()
+def sgd_update(
+    params: Dict[str, torch.Tensor],
+    grads: Dict[str, Optional[torch.Tensor]],
+    state: OptState,
+    lr: float,
+    lr_scale: Dict[str, float],
+    wd: Dict[str, float],
+    momentum: float = 0.9,
+) -> None:
+    """SGD with momentum on the flat-named ``params``, in place (reference
+    utils/tools.py:81, ``optim.SGD(momentum=0.9)``; JAX ``sgd_update``):
+    ``m = momentum * m + g``, ``p -= lr * scale * m``, weight decay added to
+    the gradient.  The moments live in ``state.m``; ``state.v`` is unused.
+    Increments ``state.step``."""
+    state.step += 1
+    for k, p in params.items():
+        sgd_leaf(p, grads.get(k), state.m[k], lr * lr_scale[k], wd[k], momentum)
+
+
+@torch.no_grad()
+def sgd_leaf(p: torch.Tensor, g: Optional[torch.Tensor], m: torch.Tensor, lr: float,
+             wd: float, momentum: float = 0.9) -> None:
+    """One tensor's SGD-with-momentum step in place, at learning rate ``lr``
+    (the group's scale applied)."""
+    g = torch.zeros_like(p) if g is None else g
+    if wd:
+        g = g + wd * p
+    m.mul_(momentum).add_(g)
+    p.sub_(lr * m)
 
 
 def make_group_trees(params: Dict[str, Any], level_lr_ratio: float,

@@ -1,9 +1,11 @@
 """Training loop: sample batch -> query grid -> MLP -> losses -> Adam.
 
-Port of the main path of ``shine_mapping_tpu/train/trainer.py``:
-``train_chunk`` with ``feature_update`` ``fused`` or ``pallas``, which is
-``body_fused`` (trainer.py:1106) and, with fused epoch windows,
-``body_winx`` (:1391) of the JAX package.  One step:
+Port of ``shine_mapping_tpu/train/trainer.py``'s single-card
+``train_chunk``: ``feature_update`` ``fused`` or ``pallas`` (JAX
+``body_fused``, trainer.py:1106, and with fused epoch windows ``body_winx``,
+:1391), ``sparse`` (lazy Adam on the touched rows, ``body_sparse``, :1022)
+and ``dense`` (autodiff through the table gather and Adam or SGD over whole
+tables, ``body_dense``, :1001, which also runs SGD).  One kernel step:
 
 1. take ``bs`` pool indices — iid draws, or epoch window ``(start_iter + t)
    % W`` (:func:`precompute_batch_windows`) — and gather the batch;
@@ -11,14 +13,18 @@ Port of the main path of ``shine_mapping_tpu/train/trainer.py``:
    (``hashgrid.lookup_level``), or a gather from lookups resolved once per
    pool (:func:`precompute_pool_lookups`); misses -> the trashbin row; then
    gather the rows ``G_i`` (widened to float32 from bf16 tables);
-3. interpolate and decode (``feat_from_rows``, ``decoder.sdf``), take the
-   loss (``_compute_loss_sparse``; the eikonal term differentiates the field
-   w.r.t. the points, so the backward is second order);
+3. interpolate and decode (``feat_from_rows``, ``decoder.sdf`` or
+   ``time_conditioned_sdf``), take the loss (``_compute_loss_sparse``: the
+   sdf_bce / sdf_l1 / sdf_l2 or dr / dr_neus main term, eikonal, normal,
+   consistency on jittered near points, the semantic NLL; the point-gradient
+   terms differentiate the field w.r.t. the points, so the backward is
+   second order);
 4. Adam on the decoders (``optimizer.adam_update``);
 5. the dense Adam step on the feature tables through the fused kernel
    (``ops/adam_kernel.py``), fed with the gathered rows' gradients: one
    launch per level (K1) or one over all levels (K2), with the row prep of
-   a window precomputed.
+   a window precomputed.  The consistency term's near points add their rows
+   and gradients to the batch's as extra entries.
 
 JAX runs a chunk as one jitted ``lax.scan``; here it is a Python loop of
 eager torch ops that update the parameters and the optimizer state in
@@ -62,15 +68,18 @@ from ..ops import adam_kernel
 from ..ops.adam_kernel import EntryPrep
 from ..ops.hashgrid import LevelTable, lookup_level
 from ..ops.interp import corner_weights
-from . import losses
+from . import losses, sparse_adam
 from .optimizer import (
     FEATURES,
     OptState,
+    adam_leaf,
     adam_update,
     bias_corrections,
     dense_params,
     lr_at_step,
     make_group_trees,
+    sgd_leaf,
+    sgd_update,
 )
 
 
@@ -213,28 +222,35 @@ def batch_windows_ok(settings: TrainSettings, feat_shapes, fused: bool) -> bool:
 
 
 def init_params(cfg, grid, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """Canonical parameters: geo/sem decoders, the grid's feature tables (the
-    same tensors, trained in place) and the dr-loss sigma."""
+    """Canonical parameters: geo/sem decoders (geo's input D + 1 when
+    time-conditioned), the grid's feature tables (the same tensors, trained
+    in place) and the dr-loss sigma (trained with the decoders)."""
     device = grid.features[0].device
 
-    def dec(hidden, level, bias):
+    def dec(hidden, level, bias, tc=False):
         return Decoder(cfg.feature_dim, hidden, level, cfg.sem_class_count,
-                       bias, generator=generator, device=device)
+                       bias, generator=generator, device=device, time_conditioned=tc)
 
     return {
-        "geo": dec(cfg.geo_mlp_hidden_dim, cfg.geo_mlp_level, cfg.geo_mlp_bias_on),
+        "geo": dec(cfg.geo_mlp_hidden_dim, cfg.geo_mlp_level, cfg.geo_mlp_bias_on,
+                   cfg.time_conditioned),
         "sem": dec(cfg.sem_mlp_hidden_dim, cfg.sem_mlp_level, cfg.sem_mlp_bias_on),
         FEATURES: list(grid.features),
         "sigma": torch.ones((), dtype=torch.float32, device=device),
     }
 
 
-def pool_to_device(pool, capacity: int, device="cuda", subset=None):
-    """Pad the host pool to ``capacity`` and upload the point-mode fields
-    (the ray, normal, origin, time and semantic fields arrive with the
-    options that read them).  ``subset``: host indices of the samples to
-    upload instead of all (the rotating sub-pools of a pool larger than the
-    device budget, JAX ``pool_to_device(subset=)``).
+def pool_to_device(pool, capacity: int, device="cuda", subset=None,
+                   settings: Optional[TrainSettings] = None):
+    """Pad the host pool to ``capacity`` and upload the fields training reads
+    (JAX ``pool_to_device``, trainer.py:2397): coord, sdf_label, weight and
+    time always; with ``settings``, the sample depths and per-ray depths
+    (``ray_loss``: the pool is ray-major, ``capacity // ray_sample_count``
+    rays), the normals (``normal_loss_on``), the ray origins
+    (``proj_correction_on``) and the labels (``semantic_on``) where the pool
+    has them.  ``subset``: host indices of the samples to upload instead of
+    all (the rotating sub-pools of a pool larger than the device budget,
+    JAX ``pool_to_device(subset=)``).
 
     Returns (device pool dict, n_valid)."""
     if subset is not None:
@@ -243,16 +259,27 @@ def pool_to_device(pool, capacity: int, device="cuda", subset=None):
     if capacity < n:
         raise ValueError(f"pool of {n} samples exceeds capacity {capacity}")
 
-    def pad(a):
-        out = np.zeros((capacity,) + a.shape[1:], a.dtype)
-        out[:n] = a
+    def pad(a, cap=capacity):
+        out = np.zeros((cap,) + a.shape[1:], a.dtype)
+        out[:a.shape[0]] = a
         return torch.from_numpy(out).to(device)
 
     dev = {
         "coord": pad(pool.coord),
         "sdf_label": pad(pool.sdf_label),
         "weight": pad(pool.weight),
+        "time": pad(pool.time),
     }
+    s = settings
+    if s is not None and s.ray_loss:
+        dev["sample_depth"] = pad(pool.sample_depth)
+        dev["ray_depth"] = pad(pool.ray_depth, capacity // s.ray_sample_count)
+    if s is not None and s.normal_loss_on and pool.normal_label is not None:
+        dev["normal_label"] = pad(pool.normal_label)
+    if s is not None and s.proj_correction_on:
+        dev["origin"] = pad(pool.origin)
+    if s is not None and s.semantic_on and pool.sem_label is not None:
+        dev["sem_label"] = pad(pool.sem_label)
     return dev, n
 
 
@@ -457,12 +484,26 @@ def _reg_fold(s: TrainSettings, shadow, corners, G, grads, owner):
     return out, reg
 
 
-def _gather_batch(pool, idx):
-    return {
+def _gather_batch(pool, idx, s: TrainSettings):
+    """The batch's fields (JAX ``_gather_batch``, trainer.py:632): those
+    every loss reads, the timestamps as ``ts``, and the fields of the
+    options that are on."""
+    batch = {
         "coord": pool["coord"][idx],
         "sdf_label": pool["sdf_label"][idx],
         "weight": pool["weight"][idx],
     }
+    if "time" in pool:
+        batch["ts"] = pool["time"][idx]
+    if s.ray_loss:
+        batch["sample_depth"] = pool["sample_depth"][idx]
+    if s.normal_loss_on:
+        batch["normal_label"] = pool["normal_label"][idx]
+    if s.proj_correction_on:
+        batch["origin"] = pool["origin"][idx]
+    if s.semantic_on:
+        batch["sem_label"] = pool["sem_label"][idx]
+    return batch
 
 
 def feat_from_rows(c, G_l, found_l, levels: Sequence[int], poly_on: bool):
@@ -478,60 +519,119 @@ def feat_from_rows(c, G_l, found_l, levels: Sequence[int], poly_on: bool):
     return f
 
 
-def _compute_loss_sparse(geo: Decoder, G_list, batch, found, s: TrainSettings):
-    """Loss with the feature tables factored out as gathered rows ``G_list``.
+def _need_point_grad(s: TrainSettings) -> bool:
+    return (s.ekional_loss_on or s.normal_loss_on or s.proj_correction_on
+            or s.consistency_loss_on)
+
+
+def _compute_loss_sparse(params, G_list, batch, found, s: TrainSettings, near=None):
+    """Loss with the feature tables factored out as gathered rows ``G_list``
+    (JAX ``_compute_loss_sparse``, trainer.py:508, and ``_compute_loss``,
+    :296, whose terms it shares).
 
     The field is linear in the rows given the (fixed) structure, so
     d loss/d table = scatter-add of d loss/d G over the corner rows — the
-    kernel applies that scatter inside the Adam sweep.  Returns
-    (total, aux)."""
+    kernel applies that scatter inside the Adam sweep.  ``near`` (the
+    consistency term) holds the jittered near points: ``idx`` (their source
+    samples), ``coords``, ``found`` and their rows ``G``, whose gradients
+    scatter like the batch's.  Every term, the point gradients' included, is
+    differentiated w.r.t. the parameters, as JAX's autodiff does (the
+    projective correction's cosine included).  Returns (total, aux)."""
+    geo: Decoder = params["geo"]
     weight = batch["weight"]
     surface_mask = weight > 0
     aux: Dict[str, torch.Tensor] = {}
-    coords = batch["coord"].detach().requires_grad_(s.ekional_loss_on)
+    need_grad = _need_point_grad(s)
+    coords = batch["coord"].detach().requires_grad_(need_grad)
 
-    pred = geo.sdf(feat_from_rows(coords, G_list, found, s.levels, s.poly_int_on))
-    if s.ekional_loss_on:
-        # d pred / d coord with a graph, so the eikonal term trains the rows
-        # and the decoder through a second-order backward
+    def pred_of(feat, ts):
+        if s.time_conditioned:
+            return geo.time_conditioned_sdf(feat, ts)
+        return geo.sdf(feat)
+
+    feat = feat_from_rows(coords, G_list, found, s.levels, s.poly_int_on)
+    pred = pred_of(feat, batch.get("ts"))
+    if need_grad:
+        # d pred / d coord with a graph, so the point-gradient terms train
+        # the rows and the decoder through a second-order backward
         (g,) = torch.autograd.grad(pred.sum(), coords, create_graph=True)
         g = g * s.sigma_sigmoid
 
-    w = torch.abs(weight)
     target = batch["sdf_label"]
-    if s.main_loss_type == "sdf_bce":
-        sdf_loss = losses.sdf_bce_loss(
-            pred, target, s.sigma_sigmoid, w, s.loss_weight_on, s.loss_reduction)
-    elif s.main_loss_type == "sdf_l1":
-        sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, False)
-    elif s.main_loss_type == "sdf_l2":
-        sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, True)
+    if s.proj_correction_on:
+        # scale the surface samples' projective labels by |cos(grad, ray)|;
+        # free-space samples keep cos = 1 (shine_batch.py:144-147)
+        ray = batch["coord"] - batch["origin"]
+        cos = torch.abs(torch.sum(g * ray, dim=-1)
+                        / (losses.safe_norm(g, dim=-1) * losses.safe_norm(ray, dim=-1)
+                           + 1e-12))
+        cos = torch.where(surface_mask, cos, torch.ones_like(cos))
+        target = target * cos
+
+    if s.ray_loss:
+        # rendering losses over rays (shine_batch.py:162-170)
+        pred_occ = torch.sigmoid(pred / params["sigma"])
+        pred_ray = pred_occ.reshape(-1, s.ray_sample_count)
+        depth_ray = batch["sample_depth"].reshape(-1, s.ray_sample_count)
+        sdf_loss = losses.batch_ray_rendering_loss(
+            depth_ray, pred_ray, batch["ray_depth"], neus_on=(s.main_loss_type == "dr_neus"))
     else:
-        raise NotImplementedError(
-            f"main_loss_type {s.main_loss_type!r}: ROADMAP Queue A item 15")
+        w = torch.abs(weight)
+        if s.main_loss_type == "sdf_bce":
+            sdf_loss = losses.sdf_bce_loss(
+                pred, target, s.sigma_sigmoid, w, s.loss_weight_on, s.loss_reduction)
+        elif s.main_loss_type == "sdf_l1":
+            sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, False)
+        elif s.main_loss_type == "sdf_l2":
+            sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, True)
+        else:
+            raise ValueError(f"unknown main_loss_type {s.main_loss_type}")
     total = sdf_loss
     aux["sdf_loss"] = sdf_loss
     if s.ekional_loss_on:
         ek = losses.eikonal_loss(g, surface_mask)
         total = total + s.weight_e * ek
         aux["eikonal_loss"] = ek
+    if s.consistency_loss_on:
+        # gradient agreement between jittered nearby points
+        # (shine_batch.py:149-158, 187-190)
+        cn = near["coords"].detach().requires_grad_(True)
+        fn = feat_from_rows(cn, near["G"], near["found"], s.levels, s.poly_int_on)
+        ts_n = batch["ts"][near["idx"]] if s.time_conditioned else None
+        (gn,) = torch.autograd.grad(pred_of(fn, ts_n).sum(), cn, create_graph=True)
+        cons = losses.consistency_loss(g[near["idx"]], gn * s.sigma_sigmoid)
+        total = total + s.weight_c * cons
+        aux["consistency_loss"] = cons
+    if s.normal_loss_on:
+        nl = losses.normal_loss(g, batch["normal_label"], surface_mask)
+        total = total + s.weight_n * nl
+        aux["normal_loss"] = nl
+    if s.semantic_on:
+        sem_pred = params["sem"].sem_label_prob(feat)
+        d = s.sem_label_decimation
+        sl = losses.sem_nll_loss(sem_pred[::d], batch["sem_label"][::d])
+        total = total + s.weight_s * sl
+        aux["sem_loss"] = sl
     aux["total_loss"] = total
     return total, aux
 
 
-def _gather_rows(feats, corners):
+def _gather_rows(feats, corners, leaf: bool = True):
     """The gathered corner rows ``G_i`` (B, 8, D), widened to float32 (bf16
-    tables), as leaf tensors that collect d loss / d row."""
+    tables): leaf tensors that collect d loss / d row, or, with ``leaf``
+    False, gathers that pass the gradient on to tables that require it (the
+    dense update's autodiff)."""
     G = [f[c.long()].float() for f, c in zip(feats, corners)]
-    for g_i in G:
-        g_i.requires_grad_()
+    if leaf:
+        for g_i in G:
+            g_i.requires_grad_()
     return G
 
 
-def lookup_rows(tables, feats, coords, levels: Sequence[int]):
+def _lookups(tables, feats, coords, levels: Sequence[int]):
     """Per level: the containing node's corner rows (misses -> the trashbin
     row; a missed probe lands on an arbitrary slot whose rows may belong to
-    a real node), the found mask, and the gathered rows ``G_i``."""
+    a real node) and the found mask."""
     corners, found = [], []
     with torch.no_grad():
         for i, level in enumerate(levels):
@@ -539,49 +639,46 @@ def lookup_rows(tables, feats, coords, levels: Sequence[int]):
             trash = torch.full_like(c_i, feats[i].shape[0] - 1)
             corners.append(torch.where(f_i[:, None], c_i, trash))
             found.append(f_i)
+    return corners, found
+
+
+def lookup_rows(tables, feats, coords, levels: Sequence[int]):
+    """:func:`_lookups` and the gathered rows ``G_i`` (leaf tensors)."""
+    corners, found = _lookups(tables, feats, coords, levels)
     return corners, found, _gather_rows(feats, corners)
 
 
 def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, torch.Tensor]:
     """The training loss terms on the pool samples ``idx``, without a step
-    (the eikonal term still differentiates the field w.r.t. the points)."""
-    batch = _gather_batch(pool, idx)
-    _, found, G = lookup_rows(tables, params[FEATURES], batch["coord"], settings.levels)
-    _, aux = _compute_loss_sparse(params["geo"], G, batch, found, settings)
+    (the point-gradient terms still differentiate the field w.r.t. the
+    points).  Point-mode terms only: no consistency or ray loss."""
+    s = dataclasses.replace(settings, consistency_loss_on=False, ray_loss=False,
+                            main_loss_type=("sdf_bce" if settings.ray_loss
+                                            else settings.main_loss_type))
+    batch = _gather_batch(pool, idx, s)
+    _, found, G = lookup_rows(tables, params[FEATURES], batch["coord"], s.levels)
+    _, aux = _compute_loss_sparse(params, G, batch, found, s)
     return {k: a.detach() for k, a in aux.items()}
 
 
-def _check_supported(s: TrainSettings, batch_sharding, batch_windows) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what this
-    slice of the port does not run yet."""
-    todo = []
-    if not s.opt_adam:
-        todo.append("SGD (Queue A item 15)")
-    if s.feature_update not in ("fused", "pallas"):
-        todo.append(f"feature_update {s.feature_update!r} "
-                    "(sparse: Queue A item 13; dense: item 15)")
-    for flag in ("ray_loss", "normal_loss_on", "consistency_loss_on",
-                 "proj_correction_on", "semantic_on", "time_conditioned"):
-        if getattr(s, flag):
-            todo.append(f"{flag} (Queue A item 15)")
-    if s.sort_batch and batch_windows is None:
-        # windows sort their indices once, at precompute
-        todo.append("sort_batch on iid batches (Queue A item 15)")
+def _check_supported(s: TrainSettings, batch_sharding) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for what the port
+    does not run yet."""
     if batch_sharding is not None:
-        todo.append("multi-GPU batch sharding (Queue A item 14)")
-    if todo:
-        raise NotImplementedError("not ported yet, see ROADMAP.md: " + "; ".join(todo))
+        raise NotImplementedError("not ported yet, see ROADMAP.md: multi-GPU batch "
+                                  "sharding (Queue A item 14)")
 
 
-def _check_modes(s: TrainSettings, feats, m_feats, n_used, pre_lookups,
-                 batch_windows, batch_indices, sr_noise16, n_iters, shadow) -> None:
+def _check_modes(s: TrainSettings, mode, feats, m_feats, n_used, pool, pre_lookups,
+                 batch_windows, batch_indices, sr_noise16, n_iters, shadow,
+                 generator, near_indices, near_shifts) -> None:
     """The JAX package's gates (trainer.py:756-836): windows need their
     prerequisites, bf16 moments the kernel update, bf16 tables fused
     windows and bf16 moments, the continual reg its shadow tables and, on
-    windows, their owner flags.  Raises ValueError."""
+    windows, their owner flags; and the inputs the options read.  Raises
+    ValueError."""
     shapes = [tuple(f.shape) for f in feats]
     fused_windows = batch_windows is not None and batch_windows.fused
-    mode = resolve_feature_update(s, fused_windows)
     if pre_lookups is not None and len(pre_lookups) != len(s.levels):
         raise ValueError(f"pre_lookups must hold one (corners, found) per level, "
                          f"got {len(pre_lookups)}")
@@ -621,6 +718,59 @@ def _check_modes(s: TrainSettings, feats, m_feats, n_used, pre_lookups,
         if batch_windows is not None and batch_windows.owner is None:
             raise ValueError("continual_reg_on with fused windows needs the reg owner "
                              "flags: precompute_batch_windows(..., reg_cover=True)")
+    for flag, field in (("ray_loss", "ray_depth"), ("normal_loss_on", "normal_label"),
+                        ("proj_correction_on", "origin"), ("semantic_on", "sem_label"),
+                        ("time_conditioned", "time")):
+        if getattr(s, flag) and field not in pool:
+            raise ValueError(f"{flag} needs the pool's {field!r}: upload it with "
+                             "pool_to_device(..., settings=settings)")
+    if s.ray_loss and s.main_loss_type not in ("dr", "dr_neus"):
+        raise ValueError(f"ray_loss renders depth: main_loss_type dr or dr_neus, "
+                         f"not {s.main_loss_type!r}")
+    if s.consistency_loss_on:
+        if (near_indices is None) != (near_shifts is None):
+            raise ValueError("near_indices and near_shifts come together")
+        if near_indices is None and generator is None:
+            raise ValueError("the consistency term draws its near points with the "
+                             "generator: pass one, or near_indices and near_shifts")
+        if near_indices is not None:
+            cnt = int(near_indices.shape[1])
+            if (tuple(near_indices.shape) != (n_iters, cnt)
+                    or tuple(near_shifts.shape) != (n_iters, cnt, 3)):
+                raise ValueError(f"near_indices must be ({n_iters}, cnt) and near_shifts "
+                                 f"({n_iters}, cnt, 3)")
+
+
+def _near_points(s: TrainSettings, coords, it, generator, near_indices, near_shifts):
+    """The consistency term's jittered near points of one step: ``cnt =
+    min(consistency_count, B)`` batch samples (uniform, with replacement)
+    shifted by U(-r, r) per axis, r = ``consistency_range * scale`` (JAX
+    body_fused, trainer.py:1190-1198), or the given draws."""
+    B = coords.shape[0]
+    if near_indices is not None:
+        idx = near_indices[it].to(device=coords.device, dtype=torch.int64)
+        shift = near_shifts[it].to(device=coords.device, dtype=coords.dtype)
+    else:
+        cnt = min(s.consistency_count, B)
+        r = s.consistency_range * s.scale
+        idx = torch.randint(0, B, (cnt,), generator=generator, device=coords.device)
+        shift = (torch.rand((cnt, 3), generator=generator, device=coords.device)
+                 * (2 * r) - r).to(coords.dtype)
+    return idx, coords[idx] + shift
+
+
+def _dense_reg(s: TrainSettings, shadow, feats, corners):
+    """The continual-learning reg of the dense update, differentiable in the
+    tables: ``sum imp (p - last)^2`` over every row the batch's corners touch
+    (JAX ``_continual_reg``, trainer.py:276-293)."""
+    reg = None
+    for i, f in enumerate(feats):
+        touched = torch.zeros(f.shape[0], dtype=f.dtype, device=f.device)
+        touched[corners[i].reshape(-1).long()] = 1.0
+        diff = f - shadow["last_frame"][i]
+        term = torch.sum(touched[:, None] * shadow["importance"][i] * diff * diff)
+        reg = term if reg is None else reg + term
+    return reg
 
 
 def train_chunk(
@@ -639,20 +789,31 @@ def train_chunk(
     batch_indices: Optional[torch.Tensor] = None,
     sr_noise16: Optional[torch.Tensor] = None,
     shadow: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
+    near_indices: Optional[torch.Tensor] = None,
+    near_shifts: Optional[torch.Tensor] = None,
 ):
     """Run ``n_iters`` optimization steps, updating ``params`` and
     ``opt_state`` in place.
 
     Batches are ``bs`` indices drawn uniformly from [0, n_valid) with
-    ``generator`` (a torch.Generator on the pool's device), or, with
-    ``batch_windows`` (:func:`precompute_batch_windows`), window
-    ``(start_iter + t) % W`` at iteration ``t``, whose update row prep comes
-    precomputed; its layout picks the update (one ``fused_adam_multi`` or
-    per-level ``fused_adam``).  Windows need ``pre_lookups``
-    (:func:`precompute_pool_lookups` of the SAME tables and pool), which
-    also serve iid batches: the per-step hash probes become gathers.
-    ``batch_indices`` (n_iters, bs) replaces the iid draw with given indices
-    — a test seam that lets a test feed the JAX package's draws.
+    ``generator`` (a torch.Generator on the pool's device), sorted under
+    ``sort_batch``; under ``ray_loss``, ``bs`` rays of the ray-major pool,
+    each expanded to its ``ray_sample_count`` consecutive samples (JAX
+    ``sample_batch``, trainer.py:969-988).  With ``batch_windows``
+    (:func:`precompute_batch_windows`), window ``(start_iter + t) % W`` at
+    iteration ``t``, whose update row prep comes precomputed; its layout
+    picks the update (one ``fused_adam_multi`` or per-level ``fused_adam``).
+    Windows need ``pre_lookups`` (:func:`precompute_pool_lookups` of the
+    SAME tables and pool), which also serve iid batches in every mode: the
+    per-step hash probes become gathers.  Test seams, for the JAX package's
+    draws: ``batch_indices`` (n_iters, bs) replaces the iid draw (the ray
+    indices under ``ray_loss``); ``near_indices`` (n_iters, cnt) and
+    ``near_shifts`` (n_iters, cnt, 3) replace the consistency term's.
+
+    The feature update is :func:`resolve_feature_update`'s: the kernel
+    (``fused`` / ``pallas``), lazy Adam on the touched rows (``sparse``,
+    :mod:`.sparse_adam`), or autodiff through the gather and Adam or, with
+    ``opt_adam`` off, SGD over whole tables (``dense``).
 
     The table dtypes pick the bf16 modes: bf16 feature moments
     (``init_opt_state(moments_bf16=True)``, gradient entries rounded to
@@ -680,7 +841,7 @@ def train_chunk(
     reference's and should be discarded.
     """
     s = settings
-    _check_supported(s, batch_sharding, batch_windows)
+    _check_supported(s, batch_sharding)
     if batch_indices is None and generator is None and batch_windows is None:
         raise ValueError("pass a torch.Generator, batch_indices or batch_windows")
     if batch_indices is not None and tuple(batch_indices.shape) != (n_iters, s.bs):
@@ -696,8 +857,10 @@ def train_chunk(
     v_feats = list(opt_state.v[FEATURES])
     device = feats[0].device
     n_used = list(s.n_used) if s.n_used is not None else [int(f.shape[0]) for f in feats]
-    _check_modes(s, feats, m_feats, n_used, pre_lookups, batch_windows, batch_indices,
-                 sr_noise16, n_iters, shadow)
+    mode = resolve_feature_update(s, batch_windows is not None and batch_windows.fused)
+    _check_modes(s, mode, feats, m_feats, n_used, pool, pre_lookups, batch_windows,
+                 batch_indices, sr_noise16, n_iters, shadow, generator, near_indices,
+                 near_shifts)
     grads_bf16 = m_feats[0].dtype == torch.bfloat16
     params_bf16 = feats[0].dtype == torch.bfloat16
     lr_scale, wd = make_group_trees(params, s.lr_level_reduce_ratio, s.weight_decay)
@@ -707,38 +870,95 @@ def train_chunk(
             if k.split(".", 1)[0] in ("geo", "sem"):
                 lr_scale[k] = 0.0
     dense = dense_params(params)
-    geo: Decoder = params["geo"]
+    if "sigma" in dense and not dense["sigma"].requires_grad:
+        # the rendering loss trains sigma with the decoders
+        dense["sigma"].requires_grad_(True)
+    L = len(s.levels)
 
-    dropped = torch.zeros((), dtype=torch.int64, device=device)
-    hist: List[Dict[str, torch.Tensor]] = []
-    for it in range(n_iters):
-        step = start_iter + it
+    def one_step(step, it):
+        """One step (JAX's scan body): the batch, the loss and its
+        gradients, the decoders' and the tables' update; returns the aux."""
+        wsel = None
+        ray_idx = None
         if batch_windows is not None:
             wsel = step % batch_windows.n_windows
             idx = batch_windows.idx[wsel]
-        elif batch_indices is not None:
-            idx = batch_indices[it].to(device=device, dtype=torch.int64)
         else:
-            idx = torch.randint(0, int(n_valid), (s.bs,), generator=generator,
-                                device=device)
-        batch = _gather_batch(pool, idx)
+            if batch_indices is not None:
+                draw = batch_indices[it].to(device=device, dtype=torch.int64)
+            else:
+                hi = int(n_valid) // s.ray_sample_count if s.ray_loss else int(n_valid)
+                draw = torch.randint(0, hi, (s.bs,), generator=generator, device=device)
+            if s.ray_loss:
+                ray_idx = draw
+                S = s.ray_sample_count
+                idx = (ray_idx[:, None] * S + torch.arange(S, device=device)[None, :]).reshape(-1)
+            else:
+                idx = torch.sort(draw).values if s.sort_batch else draw
+        batch = _gather_batch(pool, idx, s)
+        if ray_idx is not None:
+            batch["ray_depth"] = pool["ray_depth"][ray_idx]
         if pre_lookups is not None:
-            corners = [pre_lookups[i][0][idx] for i in range(len(s.levels))]
-            found = [pre_lookups[i][1][idx] for i in range(len(s.levels))]
-            G = _gather_rows(feats, corners)
+            corners = [pre_lookups[i][0][idx] for i in range(L)]
+            found = [pre_lookups[i][1][idx] for i in range(L)]
         else:
-            corners, found, G = lookup_rows(tables, feats, batch["coord"], s.levels)
+            corners, found = _lookups(tables, feats, batch["coord"], s.levels)
+        near = None
+        if s.consistency_loss_on:
+            n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
+                                           near_shifts)
+            # live probes even with pool lookups: the near points are not pool samples
+            corners_n, found_n = _lookups(tables, feats, n_coords, s.levels)
+            near = {"idx": n_idx, "coords": n_coords, "corners": corners_n, "found": found_n,
+                    "G": _gather_rows(feats, corners_n, leaf=mode != "dense")}
+        G = _gather_rows(feats, corners, leaf=mode != "dense")
         for p in dense.values():
             p.grad = None
+        if mode == "dense":
+            for f in feats:
+                f.grad = None
 
-        total, aux = _compute_loss_sparse(geo, G, batch, found, s)
+        total, aux = _compute_loss_sparse(params, G, batch, found, s, near)
+        if mode == "dense" and s.continual_reg_on:
+            reg = _dense_reg(s, shadow, feats, corners)
+            total = total + s.lambda_forget * reg
+            aux["reg_loss"] = reg
+            aux["total_loss"] = total
         total.backward()
 
         lr = lr_at_step(s.lr, step, s.lr_decay_step, s.lr_iters_reduce_ratio)
-        adam_update(dense, {k: p.grad for k, p in dense.items()}, opt_state, lr,
-                    lr_scale, wd, b1=0.9, b2=0.99, eps=s.adam_eps)
+        dense_grads = {k: p.grad for k, p in dense.items()}
+        if not s.opt_adam:
+            # SGD runs the dense update only (JAX _resolve_mode)
+            sgd_update(dense, dense_grads, opt_state, lr, lr_scale, wd)
+            for i, f in enumerate(feats):
+                sgd_leaf(f, f.grad, m_feats[i], lr * lr_scale[FEATURES][i], 0.0)
+            return aux
+        adam_update(dense, dense_grads, opt_state, lr, lr_scale, wd, b1=0.9, b2=0.99,
+                    eps=s.adam_eps)
         bc1, bc2 = bias_corrections(opt_state.step)
+        if mode == "dense":
+            for i, f in enumerate(feats):
+                adam_leaf(f, f.grad, m_feats[i], v_feats[i], lr * lr_scale[FEATURES][i], 0.0,
+                          bc1, bc2, eps=s.adam_eps)
+            return aux
         grads = [g_i.grad for g_i in G]
+        if mode == "sparse":
+            reg_total = None
+            for i in range(L):
+                seg = sparse_adam.segment_by_row(corners[i], grads[i], feats[i].shape[0])
+                kw = {}
+                if s.continual_reg_on:
+                    kw = dict(reg_lambda=s.lambda_forget, importance=shadow["importance"][i],
+                              last_frame=shadow["last_frame"][i])
+                reg_i = sparse_adam.sparse_adam_level(
+                    feats[i], m_feats[i], v_feats[i], seg, lr * lr_scale[FEATURES][i], bc1, bc2,
+                    eps=s.adam_eps, **kw)
+                reg_total = reg_i if reg_total is None else reg_total + reg_i
+            if s.continual_reg_on:
+                aux["reg_loss"] = reg_total
+                aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg_total
+            return aux
         if s.continual_reg_on:
             if batch_windows is not None:
                 owner = [o[wsel] for o in batch_windows.owner]
@@ -747,6 +967,11 @@ def train_chunk(
             grads, reg = _reg_fold(s, shadow, corners, G, grads, owner)
             aux["reg_loss"] = reg
             aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
+        if near is not None:
+            # the near points' rows ride the update as extra entries
+            corners = [torch.cat([c.reshape(-1, 8), cn.reshape(-1, 8)])
+                       for c, cn in zip(corners, near["corners"])]
+            grads = [torch.cat([g, gn.grad]) for g, gn in zip(grads, near["G"])]
         kw = dict(eps=s.adam_eps, grads_bf16=grads_bf16)
         if batch_windows is not None and batch_windows.fused:
             noise = None
@@ -758,21 +983,37 @@ def train_chunk(
                 pre=adam_kernel.window_prep(batch_windows.preps[0], wsel),
                 noise16=noise, **kw)
         elif batch_windows is not None:
-            for i in range(len(s.levels)):
+            for i in range(L):
                 adam_kernel.fused_adam(
                     feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
                     lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i],
                     pre=adam_kernel.window_prep(batch_windows.preps[i], wsel), **kw)
         elif s.fuse_update_levels:
-            dropped += adam_kernel.fused_adam_multi(
+            dropped.add_(adam_kernel.fused_adam_multi(
                 feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                lr_scale[FEATURES], n_used, **kw)
+                lr_scale[FEATURES], n_used, **kw))
         else:
-            for i in range(len(s.levels)):
-                dropped += adam_kernel.fused_adam(
+            for i in range(L):
+                dropped.add_(adam_kernel.fused_adam(
                     feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
-                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i], **kw)
-        hist.append({k: a.detach() for k, a in aux.items()})
+                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i], **kw))
+        return aux
+
+    dropped = torch.zeros((), dtype=torch.int64, device=device)
+    hist: List[Dict[str, torch.Tensor]] = []
+    if mode == "dense":
+        for f in feats:
+            f.requires_grad_(True)
+    try:
+        for it in range(n_iters):
+            step = start_iter + it
+            aux = one_step(step, it)
+            hist.append({k: a.detach() for k, a in aux.items()})
+    finally:
+        if mode == "dense":
+            for f in feats:
+                f.requires_grad_(False)
+                f.grad = None
 
     n_dropped = int(dropped)
     if n_dropped:

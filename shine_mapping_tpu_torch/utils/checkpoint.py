@@ -14,8 +14,10 @@ level), then ``geo``'s and ``sem``'s sorted keys (``b0, b1, b_out, b_sem, w0,
 w1, w_out, w_sem``), then ``sigma``.  This module lays the port's
 parameters out in that tree without jax (decoder weights transposed:
 ``nn.Linear`` keeps (out, in)), writes the same keys and the same
-``__treedef`` string, and reads either package's files.  The ``.pth``
-decoder import is ROADMAP Queue A item 15.
+``__treedef`` string, and reads either package's files.  A
+time-conditioned geometry decoder (first layer D + 1 inputs) crosses the
+same way.  :func:`load_decoders` also reads the reference's ``.pth``
+decoders (``models.decoder.load_torch_decoder``).
 """
 
 from __future__ import annotations
@@ -191,13 +193,20 @@ def save_decoders(path: str, params: Dict[str, Any]) -> None:
 
 def load_decoders(path: str, params: Optional[Dict[str, Any]] = None,
                   device="cuda") -> Dict[str, Any]:
-    """Decoders of a decoders-only export, as :class:`Decoder` modules on
-    ``device``, into (a copy of) ``params`` or a fresh dict."""
-    if path.endswith(".pth"):
-        raise NotImplementedError(
-            "not ported yet, see ROADMAP.md: the reference's .pth decoder import "
-            "(Queue A item 15)")
+    """Decoders of a decoders-only export, or of the reference's ``.pth``
+    checkpoint (its ``geo_decoder`` and, where present, ``sem_decoder``; a
+    bare state dict gives both, as in the JAX package), as :class:`Decoder`
+    modules on ``device``, into (a copy of) ``params`` or a fresh dict."""
     new = dict(params or {})
+    if path.endswith(".pth"):
+        from ..models.decoder import load_torch_decoder
+
+        new["geo"] = load_torch_decoder(path, "geo_decoder", device)
+        try:
+            new["sem"] = load_torch_decoder(path, "sem_decoder", device)
+        except KeyError:
+            pass
+        return new
     d = np.load(path, allow_pickle=False)
     for grp in ("geo", "sem"):
         leaves = {k.split(".", 1)[1]: d[k] for k in d.files if k.startswith(grp + ".")}

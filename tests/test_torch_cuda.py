@@ -850,3 +850,18 @@ def test_reg_steps_card_equals_cpu(cuda_device, fused_windows):
     for a, b in zip(oc.m["features"] + oc.v["features"], op.m["features"] + op.v["features"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
                                    atol=max(1e-5, 1e-6 * float(b.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_option_steps_card_equals_cpu(cuda_device, case):
+    """chip_smoke.py phase 5's cases of the trainer's other update modes and
+    loss terms (sparse, sparse + reg, semantic on K1 and on K2 windows,
+    consistency, normal + projective correction + sdf_l1, dr_neus, time
+    conditioning, dense Adam, SGD), 5 steps each: card = CPU at phase 5's
+    tolerances, every K1 / K2 launch of the semantic and consistency cases
+    held against its plain version."""
+    import chip_smoke
+
+    assert len(chip_smoke.OPTION_CASES) == 10
+    chip_smoke.phase_agreement_options(steps=5, cases=chip_smoke.OPTION_CASES[case:case + 1])

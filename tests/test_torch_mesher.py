@@ -253,8 +253,18 @@ def test_bf16_tables_mesh_from_their_rows(setup):
 
 
 def test_unported_paths_raise(setup):
+    """Data-parallel meshing still raises naming its ROADMAP item; vertex
+    semantics, which raised before they were ported, now run through: every
+    vertex kept gets a class colour (their parity with the JAX package is
+    tests/test_torch_semantic.py's)."""
+    from shine_mapping_tpu_torch.models.decoder import Decoder
+
     jm, m, _ = setup
     with pytest.raises(NotImplementedError, match="item 14"):
         Mesher(m.config, m.grid, m.geo_params, dp_mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        m.recon_bbx_mesh((np.full(3, -0.5), np.full(3, 0.5)), 0.1, "", "", estimate_sem=True)
+    sem = Decoder(8, 32, 2, 20, generator=torch.Generator().manual_seed(3), device="cpu")
+    mesh = Mesher(m.config, m.grid, m.geo_params, sem).recon_bbx_mesh(
+        (np.full(3, -34 / 64), np.full(3, 34 / 64)), 1 / 64, "", "", estimate_sem=True,
+        filter_free_space_vertices=False)
+    assert mesh.vertices.shape[0] > 0
+    assert mesh.vertex_colors.shape == mesh.vertices.shape

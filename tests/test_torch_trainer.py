@@ -45,7 +45,7 @@ from shine_mapping_tpu_torch.data.dataset import LiDARDataset
 from shine_mapping_tpu_torch.ops import adam_kernel
 from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
 from shine_mapping_tpu_torch.train import trainer
-from shine_mapping_tpu_torch.train.optimizer import init_opt_state
+from shine_mapping_tpu_torch.train.optimizer import FEATURES, init_opt_state
 from tests import synth
 
 STEPS = 30
@@ -196,21 +196,42 @@ def test_train_chunk_at_reference_eps_tracks_jax(worlds):
 
 @pytest.mark.parametrize("settings_kw,call_kw", [
     (dict(feature_update="sparse"), {}), (dict(opt_adam=False), {}),
-    (dict(normal_loss_on=True), {}), (dict(ray_loss=True), {}),
+    (dict(normal_loss_on=True), {}), (dict(ray_loss=True, main_loss_type="dr_neus"), {}),
     (dict(sort_batch=True), {}), ({}, dict(pre_lookups=(), batch_sharding=object())),
 ], ids=["sparse", "sgd", "normal_loss", "ray_loss", "sort_batch", "pre_lookups"])
 def test_train_chunk_rejects_unported_options(worlds, settings_kw, call_kw):
-    """Options of later slices raise NotImplementedError.  (Pool lookups are
-    ported; with multi-GPU batch sharding they are not.)"""
+    """Multi-GPU batch sharding (with or without pool lookups) still raises
+    NotImplementedError naming its ROADMAP item.  The options of the cases
+    that raised before they were ported now train through: two steps with
+    finite losses and parameters (their parity with the JAX package is
+    tests/test_torch_options.py's)."""
     from shine_mapping_tpu_torch.train.optimizer import init_opt_state
 
     cfg_t, grid_t, pool_t = worlds["torch"]
     s = trainer.TrainSettings.from_config(cfg_t, grid_t.levels, **settings_kw)
     params = trainer.init_params(cfg_t, grid_t, torch.Generator().manual_seed(0))
-    dev, n = trainer.pool_to_device(pool_t, len(pool_t), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_chunk(params, init_opt_state(params), grid_t.tables, dev, n, 0,
-                            torch.Generator(), s, 1, **call_kw)
+    params[FEATURES] = [f.clone() for f in params[FEATURES]]  # the shared grid stays as is
+    dev, n = trainer.pool_to_device(pool_t, len(pool_t), device="cpu", settings=s)
+    rng = np.random.default_rng(0)
+    if s.normal_loss_on:
+        nrm = rng.normal(size=(n, 3)).astype(np.float32)
+        dev["normal_label"] = torch.from_numpy(nrm / np.linalg.norm(nrm, axis=1, keepdims=True))
+    if s.ray_loss:
+        # the point pool read as rays of ray_sample_count consecutive samples
+        depth = torch.linalg.norm(dev["coord"], dim=1)
+        dev["sample_depth"] = depth
+        dev["ray_depth"] = depth[: n - n % s.ray_sample_count].reshape(
+            -1, s.ray_sample_count).mean(dim=1)
+    if "batch_sharding" in call_kw:
+        with pytest.raises(NotImplementedError, match="item 14"):
+            trainer.train_chunk(params, init_opt_state(params), grid_t.tables, dev, n, 0,
+                                torch.Generator(), s, 1, **call_kw)
+        return
+    _, opt, aux = trainer.train_chunk(params, init_opt_state(params), grid_t.tables, dev, n,
+                                      0, torch.Generator().manual_seed(1), s, 2, **call_kw)
+    assert opt.step == 2 and np.isfinite(float(aux["last"]["total_loss"]))
+    for f in params[FEATURES]:
+        assert torch.isfinite(f).all()
 
 
 # ------------------------------------------------------------- bf16 map mode
