@@ -123,8 +123,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    least one rotation, finite losses with sem_loss falling, Chamfer-L1 <
    0.15 m and F-score > 75 % against the ground truth, >= 80 % of the
    vertices near one labelled class carrying it; G's F-score within 5
-   points of F's.  ``--only agreement,city`` (any of agreement, map,
-   incre, city) runs those phases alone and prints no result line.
+   points of F's;
+9. multi: training on several cards.  ``[kernels]`` K2's row-sharded
+   caller (``fused_adam_shard``, f32, bf16 moments, bf16 p + SR) at the
+   main path's shapes over 2 and 4 shards: each shard against its plain
+   version (phase 2's tolerance plus the sum-order spread), the shards'
+   blocks concatenated against one unsharded K2 launch (bf16 p bit-equal on
+   rows with at most one entry: the rounding noise is keyed by the whole
+   table's element), wrapper / alone / plain / bound ms.  ``[multi]``: ranks
+   spawned on the cards present (two on one card over gloo; one a card over
+   NCCL where there are two or more) train the ICRA config on the bench
+   world, 50 steps a run: (a) replicated tables, iid K2; (b) replicated,
+   the bf16 map mode on fused windows; (c) row-sharded tables on routed
+   fused windows, f32 (K2's row-sharded caller); (d) (c) with bf16 tables;
+   (e) (c) with bf16 moments, 20 steps.  Each: ms/step, launches per rank,
+   collectives' calls and bytes per step, peaks per rank, the fixed-sample
+   loss falling; (a), (b): every rank's tables, moments and decoders
+   bit-identical after every chunk; (c)-(e): after the first step the
+   tables held against a one-rank run of the same windows from the same
+   state (phase 2's tolerance plus the sum-order spread, bf16 bit-equal on
+   rows with at most one entry), after the last the fixed-sample loss
+   within 5 % of its drop.  ``[multi] cli``: the batch CLI with
+   ``tpu.mesh_shape: 2``, row-sharded tables and the bf16 map mode on phase
+   6's world, 500 steps: the bars, within 5 F-score points of run B, and on
+   its rank-0 checkpoint two ranks' sharded data phase (= the one-process
+   pool and octree), data-parallel meshing (= one rank's masks and sdf) and
+   the checkpoint cut into row blocks and written again (bit-equal).
+   ``--only agreement,city`` (any of agreement, map, incre, city, multi)
+   runs those phases alone and prints no result line.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1615,6 +1641,9 @@ def phase_agreement_options(steps=20, cases=OPTION_CASES):
 # Chamfer-L1 (m) under, F-score (%) over: the bars the JAX package holds its
 # batch driver to on this scene (tests/test_e2e.py::test_batch_driver_end_to_end)
 MAP_BARS = (0.15, 75.0)
+MAP_B = "run B (bf16 map mode, K2 + SR)"
+# each _map_run's F-score by label (phase 9 holds its two-rank run to run B's)
+MAP_SCORES = {}
 # an eval of tests/test_e2e.py's parameters
 EVAL_KW = dict(down_sample_res=0.05, threshold=0.2, truncation_acc=0.4, truncation_com=2.0,
                mesh_sample_point=300_000)
@@ -1726,6 +1755,7 @@ def _map_run(label, cfg, gt_path, launch_key, per_step, preps):
           + ", ".join(f"{k} {rec['mesh(s)/' + k]:.3f} s"
                       for k in ("query", "readback", "marching", "finalize")))
     m = eval_mesh(os.path.join(run_path, f"mesh/mesh_iter_{cfg.iters}.ply"), gt_path, **EVAL_KW)
+    MAP_SCORES[label] = m["F-score (%)"]
     print(f"[map] {label}: eval_mesh F-score {m['F-score (%)']:.3f} %, precision "
           f"{m['Precision [Accuracy] (%)']:.3f} %, recall {m['Recall [Completeness] (%)']:.3f} "
           f"%, Chamfer-L1 {m['Chamfer_L1 (m)']:.4f} m (bars: < {MAP_BARS[0]} m, > "
@@ -1816,8 +1846,7 @@ def phase_map(n_frames=20, iters_a=1500, iters_b=500, n_az=1024, n_el=64):
         cfg = _map_config(os.path.join(tmp, "world"), os.path.join(tmp, "b"), iters_b,
                           feature_update="pallas", moments_bf16=True, batch_windows=True,
                           params_bf16=True)
-        _, grid, params, counts = _map_run(
-            "run B (bf16 map mode, K2 + SR)", cfg, gt_path, "fused_adam_multi_bf16p", 1, 1)
+        _, grid, params, counts = _map_run(MAP_B, cfg, gt_path, "fused_adam_multi_bf16p", 1, 1)
         assert grid.features[0].dtype.itemsize == 2, "run B did not keep bf16 tables"
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
@@ -2482,6 +2511,810 @@ def phase_city(n_frames=150, iters=4000, rotate=1000, n_az=1024, n_el=48, blocks
     return launches, runs
 
 
+# ----------------------------------------------------------------- phase 9
+
+SHARD_TPU = "shine_mapping_tpu/ops/adam_kernel.py:528"
+_SHARD_CHECKS = {"f32": "f32 tolerance plus the sum-order spread",
+                 "bf16m": "p within tolerance plus the sum-order spread, moments one-ulp ties",
+                 "bf16p": "p rounding against the unrounded step, moments one-ulp ties"}
+
+
+def _shard_entries(rows_l, g_l, sizes, k, n, pad_share=0.1, rng=None):
+    """Shard k's entries of a step, as the routed windows deliver them: the
+    found entries whose rows lie in its blocks, in another order, their rows
+    in its blocks concatenated, and a share of pad slots (row -1, gradient
+    never read).  Returns (rows_loc int32, g_loc, per level (local rows,
+    grads) of the real entries)."""
+    import torch
+
+    rl, gl, per = [], [], []
+    off = 0
+    for rows, g, C in zip(rows_l, g_l, sizes):
+        b = C // n
+        r = rows.long()
+        sel = (r // b == k) & (r != C - 1)
+        per.append((r[sel] - k * b, g[sel]))
+        rl.append(r[sel] - k * b + off)
+        gl.append(g[sel])
+        off += b
+    r, g = torch.cat(rl), torch.cat(gl)
+    n_pad = int(pad_share * r.shape[0])
+    perm = torch.from_numpy(rng.permutation(r.shape[0] + n_pad)).to(r.device)
+    r = torch.cat([r, torch.full((n_pad,), -1, dtype=r.dtype, device=r.device)])[perm]
+    g = torch.cat([g, torch.full((n_pad, g.shape[1]), float("nan"), device=g.device)])[perm]
+    return r.to(torch.int32).contiguous(), g.contiguous(), per
+
+
+def _det_check(tabs0, rows_l, g_l, sizes, n_used, scales, lr, bc1, bc2):
+    """The replicas' deterministic sum (``det`` in csrc/fused_adam.cu: the
+    update of runs (a) and (b)) at the main path's shapes.  Per K2 variant,
+    a launch of ``fused_adam_multi(deterministic=True)`` on the sorted plain
+    prep held against the plain version on the same inputs as phase 2 holds
+    the atomics: f32 tables within phase 2's tolerance plus the sum-order
+    spread (the plain version on the card sums by ``index_add_``'s atomics)
+    and bit-equal on rows with at most one entry, bf16 moments bit-equal but
+    for one-ulp ties, bf16 p against the unrounded step (:func:`_check_sr`)
+    and bit-equal to the plain version with the kernel's noise on
+    single-entry rows; a second launch bit-identical.  Then what the sum
+    costs K2 f32: the kernel alone with ``det`` on the sorted prep against
+    the atomics on csrc/entry_prep.cu's prep, and the two preps.  Returns
+    the largest error against the plain version per variant."""
+    import torch
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    D = tabs0[0][0].shape[1]
+    tb = ak.tile_rows(D)
+    plain_pre = ak.window_prep(ak.entry_prep_stack_plain([r.reshape(1, -1) for r in rows_l],
+                                                         sizes, n_used, tb), 0)
+    single = _single_rows(rows_l, sizes, n_used)
+    lrs = [lr * x for x in scales]
+    dtypes = {"f32": (torch.float32, torch.float32),
+              "bf16m": (torch.float32, torch.bfloat16),
+              "bf16p": (torch.bfloat16, torch.bfloat16)}
+    errs = {}
+    for variant, (pd, md) in dtypes.items():
+        t0 = [[t.to(dt) for t in tabs0[k]] for k, dt in ((0, pd), (1, md), (2, md))]
+        kw = dict(grads_bf16=variant != "f32")
+
+        def det(seed=7):
+            t = [[x.clone() for x in lv] for lv in t0]
+            ak.fused_adam_multi(*t, rows_l, g_l, lr, bc1, bc2, scales, n_used, pre=plain_pre,
+                                deterministic=True, sr_seed=seed if variant == "bf16p" else None,
+                                **kw)
+            return t
+
+        kern, again = det(), det()
+        ref = [[x.clone() for x in lv] for lv in t0]
+        ak.fused_adam_multi_plain(*ref, rows_l, g_l, lr, bc1, bc2, scales, n_used,
+                                  sr_seed=7 if variant == "bf16p" else None, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(kern, again):
+            for a, b in zip(x, y):
+                assert torch.equal(a.view(torch.int16 if a.itemsize == 2 else torch.int32),
+                                   b.view(torch.int16 if b.itemsize == 2 else torch.int32)), \
+                    f"{variant}: two det launches parted"
+        if variant == "bf16p":
+            exact = [[t.float() for t in t0[0]], [t.clone() for t in t0[1]],
+                     [t.clone() for t in t0[2]]]
+            ak.fused_adam_multi_plain(*exact, rows_l, g_l, lr, bc1, bc2, scales, n_used,
+                                      grads_bf16=True)
+            other = det(8)
+            torch.cuda.synchronize()
+            err = _check_sr(kern[0], exact[0], t0[0], n_used, again[0], other[0])[0]
+            _check_bf16_ties(kern[1:], exact[1:], t0[1:], n_used)
+            for t in range(3):
+                for a, b, s_ in zip(kern[t], ref[t], single):
+                    diff = int((a[s_].view(torch.int16) != b[s_].view(torch.int16)).sum())
+                    assert diff == 0, f"det bf16p: {diff} elements of single-entry rows differ"
+            del exact, other
+        else:
+            spread = [[], [], []]
+            for l in range(len(sizes)):
+                sp = _sum_order_spread([t0[0][l], t0[1][l].float(), t0[2][l].float()],
+                                       rows_l[l], g_l[l], lrs[l], bc1, bc2, n_used[l], **kw)
+                for t in range(3):
+                    spread[t].append(sp[t][0])
+            if variant == "f32":
+                err = _check_f32(kern, ref, t0, n_used, single=single, spread=spread)
+            else:
+                err = _check_f32(kern[:1], ref[:1], t0[:1], n_used, names="p", single=single,
+                                 spread=spread[:1])
+                err = max(err, _check_bf16_ties(kern[1:], ref[1:], t0[1:], n_used)[0])
+            del spread
+        errs[variant] = err
+        del t0, kern, again, ref
+        torch.cuda.empty_cache()
+    print(f"[kernels] K2 deterministic sum (the replicated ranks' update; 3 levels, M "
+          f"{3 * rows_l[0].numel()}) vs plain at phase 2's checks (f32 tolerance plus the "
+          "sum-order spread, single-entry rows bit-equal, bf16 moment ties, bf16 p rounding "
+          "against the unrounded step), two launches bit-identical: max_abs_err "
+          + ", ".join(f"{v} {e:.3e}" for v, e in errs.items()))
+
+    kern_pre = ak.entry_prep(rows_l, sizes, n_used, D)
+    offs = [0, sizes[0], sizes[0] + sizes[1]]
+    M = rows_l[0].numel()
+    t = [[x.clone() for x in lv] for lv in tabs0]
+
+    def launch(pre, det):
+        return lambda: ak._launch("f32", *t, g_l, [0, M, 2 * M], pre, n_used, offs, lrs, 0.9,
+                                  0.99, bc1, bc2, 1e-15, det=det)
+
+    t_atom, t_det = graph_ms(launch(kern_pre, False)), graph_ms(launch(plain_pre, True))
+    t_prep = cuda_ms(lambda: ak.entry_prep(rows_l, sizes, n_used, D))
+    t_sort = cuda_ms(lambda: ak.entry_prep_stack_plain([r.reshape(1, -1) for r in rows_l],
+                                                       sizes, n_used, tb), iters=5)
+    print(f"[kernels] K2 f32 deterministic sum cost: kernel alone {t_det:.4f} ms against "
+          f"{t_atom:.4f} ms with atomics; its prep (stable sort) {t_sort:.4f} ms against "
+          f"csrc/entry_prep.cu's {t_prep:.4f} ms; per iid step "
+          f"+{t_det - t_atom + t_sort - t_prep:.4f} ms (windows: the sort is precomputed)")
+    del t, kern_pre, plain_pre
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _levels_with(tabs, used):
+    """A shard's tables and used rows on the levels that hold used rows
+    (a level whose used head lies in other shards has none)."""
+    keep = [l for l, u in enumerate(used) if u > 0]
+    return [[t[l] for l in keep] for t in tabs], [used[l] for l in keep]
+
+
+def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536,
+                        shard_counts=(2, 4)):
+    """[kernels] K2's row-sharded caller (``fused_adam_shard``) at the main
+    path's shapes: the bench world's 3 x 4,194,304-row tables (used heads as
+    phase 2's, zero moments past them), one step's entries (M per level,
+    with duplicates; misses are not routed), split over 2 and 4 shards with
+    pad slots.  Each shard's launch against its plain version with phase
+    2's checks on every row (f32: its tolerance plus the sum-order spread;
+    bf16 moments: one-ulp ties; bf16 p: the rounding against the unrounded
+    step, the same seed the same bits) and bit-equal on rows with at most
+    one entry; the shards' blocks concatenated against one unsharded K2
+    launch on the same entries (rows with at most one entry bit-equal, bf16
+    p too: the noise is keyed by the element's place in the whole table;
+    f32 within the tolerance plus the sum-order spread, bf16 elements
+    one-ulp ties); times of the fullest shard (its rows hold the most used
+    rows).  Before them the replicas' deterministic sum (:func:`_det_check`)."""
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    dev = torch.device(DEVICE)
+    D = 8
+    sizes = [C] * 3
+    n_used = list(ak.used_rows_hint(corners, sizes))
+    lr, bc1, bc2 = 0.01, 1 - 0.9 ** 5, 1 - 0.99 ** 5
+    scales = [1.0, 0.5, 0.25]
+    lrs = [lr * s for s in scales]
+    rng = np.random.default_rng(1)
+    tabs0, rows_l, g_l = _kernel_inputs(rng, sizes, n_used, M, D, dev)
+    dtypes = {"f32": (torch.float32, torch.float32),
+              "bf16m": (torch.float32, torch.bfloat16),
+              "bf16p": (torch.bfloat16, torch.bfloat16)}
+    _det_check(tabs0, rows_l, g_l, sizes, n_used, scales, lr, bc1, bc2)
+    rows_json = []
+    for variant in ("f32", "bf16m", "bf16p"):
+        pd, md = dtypes[variant]
+        kw = dict(grads_bf16=variant != "f32", sr_seed=7 if variant == "bf16p" else None)
+        t0 = [[t.to(dt) for t in tabs0[k]] for k, dt in ((0, pd), (1, md), (2, md))]
+        whole = [[t.clone() for t in lv] for lv in t0]
+        ak.fused_adam_multi(*whole, rows_l, g_l, lr, bc1, bc2, scales, n_used, **kw)
+        single = _single_rows(rows_l, sizes, n_used)
+        spread_w = [[], [], []]  # the whole tables' sum-order spread (f32 p, m, v)
+        if variant != "bf16p":
+            for l in range(3):
+                sp = _sum_order_spread([t0[0][l], t0[1][l].float(), t0[2][l].float()],
+                                       rows_l[l], g_l[l], lrs[l], bc1, bc2, n_used[l],
+                                       grads_bf16=kw["grads_bf16"])
+                for t in range(3):
+                    spread_w[t].append(sp[t][0])
+        entry = {}
+        for n in shard_counts:
+            b = C // n
+            blocks, times, errs = [], [], []
+            for k in range(n):
+                rows_loc, g_loc, per = _shard_entries(rows_l, g_l, sizes, k, n, rng=rng)
+                loc0 = [[t[k * b:(k + 1) * b].clone() for t in lv] for lv in t0]
+                base = ak.shard_row_base([(C, D)] * 3, n, k)
+                pre = ak.entry_prep_local(rows_loc, [b] * 3, D)
+                kern = [[t.clone() for t in lv] for lv in loc0]
+                ak.fused_adam_shard(*kern, rows_loc, g_loc, lr, bc1, bc2, scales, base, pre=pre,
+                                    **kw)
+                ref = [[t.clone() for t in lv] for lv in loc0]
+                ak.fused_adam_shard_plain(*ref, rows_loc, g_loc, lr, bc1, bc2, scales, base,
+                                          pre=pre, **kw)
+                torch.cuda.synchronize()
+                single_k = [s_[k * b:(k + 1) * b] for s_ in single]
+                used = [max(0, min(nu - k * b, b)) for nu in n_used]
+                # levels whose used head lies in other shards: zero rows, a no-op
+                for l in (l for l, u in enumerate(used) if u == 0):
+                    for t in range(3):
+                        assert torch.equal(kern[t][l].float(), loc0[t][l].float()), \
+                            f"shard {k}/{n} {variant}: unused level {l} changed"
+                if variant == "bf16p":
+                    for t in range(3):
+                        for a, c, s_ in zip(kern[t], ref[t], single_k):
+                            diff = int((a[s_].view(torch.int16) != c[s_].view(torch.int16)).sum())
+                            assert diff == 0, f"shard {k}/{n} bf16p: {diff} single-row elements"
+                    # every row as phase 2: p's rounding against the unrounded
+                    # step (same seed the same bits, another seed not), moments
+                    # bit-equal but for one-ulp ties
+                    exact = [[t.float() for t in loc0[0]], [t.clone() for t in loc0[1]],
+                             [t.clone() for t in loc0[2]]]
+                    ak.fused_adam_shard_plain(*exact, rows_loc, g_loc, lr, bc1, bc2, scales,
+                                              base, pre=pre, grads_bf16=True)
+                    again = [[t.clone() for t in lv] for lv in loc0]
+                    other = [[t.clone() for t in lv] for lv in loc0]
+                    ak.fused_adam_shard(*again, None, g_loc, lr, bc1, bc2, scales, base,
+                                        pre=pre, **kw)
+                    ak.fused_adam_shard(*other, None, g_loc, lr, bc1, bc2, scales, base,
+                                        pre=pre, **dict(kw, sr_seed=8))
+                    torch.cuda.synchronize()
+                    (p_k, p_e, p_0, p_a, p_o), u_k = _levels_with(
+                        [kern[0], exact[0], loc0[0], again[0], other[0]], used)
+                    errs.append(_check_sr(p_k, p_e, p_0, u_k, p_a, p_o)[0])
+                    mv, u_k = _levels_with(kern[1:] + exact[1:] + loc0[1:], used)
+                    _check_bf16_ties(mv[0:2], mv[2:4], mv[4:6], u_k, moved_share=None)
+                    del exact, again, other
+                else:
+                    spread = [[], [], []]
+                    for l, (r_l, gg) in enumerate(per):
+                        sp = _sum_order_spread([x[l] for x in loc0], r_l, gg, lrs[l], bc1, bc2,
+                                               b, grads_bf16=kw["grads_bf16"])
+                        for t in range(3):
+                            spread[t].append(sp[t][0])
+                    names = "pmv" if variant == "f32" else "p"
+                    cut = 3 if variant == "f32" else 1
+                    errs.append(_check_f32(kern[:cut], ref[:cut], loc0[:cut], [b] * 3,
+                                           names=names, single=single_k, moved_share=None,
+                                           spread=spread[:cut]))
+                    if variant == "bf16m":
+                        for t in (1, 2):
+                            for a, c, s_ in zip(kern[t], ref[t], single_k):
+                                assert torch.equal(a[s_].view(torch.int16),
+                                                   c[s_].view(torch.int16)), \
+                                    f"shard {k}/{n} bf16m moments differ on single rows"
+                        # every row: bit-equal but for one-ulp ties, as phase 2
+                        mv, u_k = _levels_with(kern[1:] + ref[1:] + loc0[1:], used)
+                        errs[-1] = max(errs[-1], _check_bf16_ties(
+                            mv[0:2], mv[2:4], mv[4:6], u_k, moved_share=None)[0])
+                blocks.append(kern)
+                # timed on copies: the checked blocks stay one step from loc0
+                tim = [[t.clone() for t in lv] for lv in loc0]
+                t_wrap = cuda_ms(lambda: ak.fused_adam_shard(*tim, None, g_loc, lr, bc1, bc2,
+                                                             scales, base, pre=pre, **kw))
+
+                def alone():
+                    ak._launch(variant, *tim, [g_loc] * 3, [0] * 3, pre, [b] * 3,
+                               [0, b, 2 * b], lrs, 0.9, 0.99, bc1, bc2, 1e-15,
+                               kw["grads_bf16"], 7, row_base=base)
+
+                scratch = [[t.clone() for t in lv] for lv in loc0]
+                times.append(dict(wrapper=t_wrap, alone=graph_ms(alone),
+                                  plain=cuda_ms(lambda: ak.fused_adam_shard_plain(
+                                      *scratch, None, g_loc, lr, bc1, bc2, scales, base,
+                                      pre=pre, **kw), iters=3),
+                                  m_sh=int(rows_loc.shape[0]),
+                                  used=[max(0, min(nu - k * b, b)) for nu in n_used]))
+                del ref, scratch, tim, pre
+            # the blocks concatenated against one unsharded K2 launch: rows
+            # with at most one entry bit-equal; every row of f32 tables within
+            # phase 2's tolerance plus the sum-order spread (both sum a row's
+            # entries by atomics), bf16 elements but for one-ulp ties
+            got = [[torch.cat([blk[t][l] for blk in blocks]) for l in range(3)]
+                   for t in range(3)]
+            for t in range(3):
+                for l in range(3):
+                    bits = torch.int16 if got[t][l].itemsize == 2 else torch.int32
+                    s_ = single[l]
+                    assert torch.equal(got[t][l][s_].view(bits), whole[t][l][s_].view(bits)), \
+                        f"{n} shards vs K2 ({variant}): table {t} level {l} differs on rows " \
+                        "with at most one entry"
+            if variant == "f32":
+                _check_f32(got, whole, t0, n_used, moved_share=None, spread=spread_w)
+            elif variant == "bf16m":
+                _check_f32(got[:1], whole[:1], t0[:1], n_used, names="p", moved_share=None,
+                           spread=spread_w[:1])
+                _check_bf16_ties(got[1:], whole[1:], t0[1:], n_used, moved_share=None)
+            else:
+                _check_bf16_ties(got, whole, t0, n_used, names="pmv", moved_share=None)
+            del got
+            worst = max(range(n), key=lambda k: times[k]["alone"])
+            tm = times[worst]
+            pb, mb = (t.itemsize for t in dtypes[variant])
+            # the fullest shard's step: its whole blocks in and out, its entries
+            elems = 3 * b * D
+            nbytes = 2 * (pb + 2 * mb) * elems + tm["m_sh"] * (4 + 4 + 4 * D)
+            flops = (13 + (10 if variant == "bf16p" else 0)) * elems + tm["m_sh"] * D
+            bound, by = (1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS),
+                         "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_F32_FLOPS
+                         else "operations")
+            entry[n] = dict(ms=tm["wrapper"], kernel_only_ms=tm["alone"], plain_ms=tm["plain"],
+                            bound_ms=bound, bound_by=by, max_abs_err=max(errs),
+                            shard_kernel_ms=[round(x["alone"], 4) for x in times])
+            print(f"[kernels] K2 shard fused_adam_multi_shard{ak._SUFFIX[variant]} ({n} shards "
+                  f"of {b} rows x 3 levels, entries per shard {[x['m_sh'] for x in times]} "
+                  f"incl. ~10% pads): each shard vs plain max_abs_err {max(errs):.3e} (phase 2's "
+                  f"checks on every row: {_SHARD_CHECKS[variant]}; single-entry rows bit-equal)"
+                  f", {n} shards concatenated = unsharded K2 (single-entry rows bit-equal, "
+                  + ("p, m and v one-ulp ties" if variant == "bf16p" else _SHARD_CHECKS[variant])
+                  + f"); fullest shard {worst}: wrapper {tm['wrapper']:.4f} ms, kernel alone "
+                  f"{tm['alone']:.4f} ms (all shards {entry[n]['shard_kernel_ms']}), plain "
+                  f"{tm['plain']:.4f} ms, library none, bound {bound:.4f} ms ({by}), "
+                  f"{bound / tm['alone']:.0%} of bound")
+            del blocks
+            torch.cuda.empty_cache()
+        del spread_w
+        e2, e4 = entry[shard_counts[0]], entry[shard_counts[-1]]
+        rows_json.append(dict(
+            name="fused_adam_multi_shard" + ak._SUFFIX[variant], route="cuda", source=SOURCE,
+            replaces=SHARD_TPU, variant=variant, max_abs_err=max(e2["max_abs_err"],
+                                                                  e4["max_abs_err"]),
+            ms=e2["ms"], kernel_only_ms=e2["kernel_only_ms"], plain_ms=e2["plain_ms"],
+            bound_ms=e2["bound_ms"], bound_by=e2["bound_by"], library_ms=None,
+            shards=shard_counts[0], ms_4_shards=e4["ms"],
+            kernel_only_ms_4_shards=e4["kernel_only_ms"], bound_ms_4_shards=e4["bound_ms"]))
+        del whole, t0
+        torch.cuda.empty_cache()
+    return rows_json
+
+
+# phase 9's training runs on the bench world: (tag, label, table layout,
+# fused windows, bf16 moments, bf16 tables, the update's launch key, steps)
+MULTI_RUNS = (
+    ("a", "replicated tables, iid K2", "replicated", False, False, False,
+     "fused_adam_multi", 50),
+    ("b", "replicated tables, bf16 map mode on fused windows (K2 + SR)", "replicated", True,
+     True, True, "fused_adam_multi_bf16p", 50),
+    ("c", "row-sharded tables, routed fused windows, f32 (K2 shard)", "rows", True, False,
+     False, "fused_adam_multi_shard", 50),
+    ("d", "row-sharded tables, routed fused windows, bf16 tables (K2 shard + SR)", "rows",
+     True, True, True, "fused_adam_multi_shard_bf16p", 50),
+    ("e", "row-sharded tables, routed fused windows, bf16 moments (K2 shard)", "rows", True,
+     True, False, "fused_adam_multi_shard_bf16m", 20),
+)
+
+
+def _join_ranks(rank, world, port, backend):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from shine_mapping_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    # a rank that waits 5 minutes on a collective fails the phase, not the smoke's limit
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(minutes=5))
+    return mesh.data_group(dev)
+
+
+def _step_one_check(tag, first, ref_tabs, init, captured, s, bc, variant):
+    """The routed run's tables after its first step against the one-rank
+    run's after the same first step, from the same state: f32 within phase
+    2's tolerance plus the sum-order spread; bf16 elements bit-equal on
+    rows with at most one entry.  Returns (max |d p|, share of p bit-equal)."""
+    import torch
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    rows_l, g_l = captured
+    C = [t.shape[0] for t in init[0]]
+    single = _single_rows(rows_l, C, s.n_used)
+    err, equal, total = 0.0, 0, 0
+    for l in range(len(C)):
+        a = [x[l] for x in first]
+        b = [x[l] for x in ref_tabs]
+        err = max(err, float((a[0].float() - b[0].float()).abs().max()))
+        equal += int((a[0].view(torch.int16 if a[0].itemsize == 2 else torch.int32)
+                      == b[0].view(torch.int16 if b[0].itemsize == 2 else torch.int32)).sum())
+        total += a[0].numel()
+        s_ = single[l]
+        for t in range(3):
+            if a[t].dtype == torch.bfloat16:
+                diff = int((a[t][s_].view(torch.int16) != b[t][s_].view(torch.int16)).sum())
+                assert diff == 0, f"({tag}) table {t} level {l}: {diff} elements of rows with " \
+                    "at most one entry differ from the one-rank run"
+        if variant == "bf16p":
+            continue
+        lr_l = float(s.lr) * (s.lr_level_reduce_ratio ** l)
+        sp = _sum_order_spread([x[l] for x in init], rows_l[l], g_l[l], lr_l, bc[0], bc[1],
+                               s.n_used[l], grads_bf16=variant != "f32")
+        for t in range(3 if variant == "f32" else 1):
+            x, y, x0 = a[t].float(), b[t].float(), init[t][l].float()
+            atol = 1e-6 if t else min(1e-6, 1e-5 * float(x0.abs().max()))
+            allow = atol + 1e-5 * y.abs() + sp[t][0]
+            bad = ~((x - y).abs() <= allow)
+            assert not bad.any(), f"({tag}) table {t} level {l}: {int(bad.sum())} elements " \
+                "past phase 2's tolerance and the sum-order spread after the first step"
+    return err, equal / total
+
+
+def _multi_rank(rank, world, port, backend, out_path, steps_scale):
+    """Phase 9's training runs on one rank (module doc)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.parallel import comm, mesh
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import (FEATURES, bias_corrections,
+                                                         init_opt_state)
+
+    grp = _join_ranks(rank, world, port, backend)
+    dev = grp.device
+    cfg = SHINEConfig().load(ICRA_CONFIG)
+    t0 = time.perf_counter()
+    grid, pool, _ = build_bench_world(cfg, dev)
+    pool_dev, n_valid = trainer.pool_to_device(pool, len(pool), device=dev)
+    pre = trainer.precompute_pool_lookups(grid.tables, pool_dev["coord"], grid.levels,
+                                          [f.shape[0] for f in grid.features])
+    init = [f.clone() for f in grid.features]
+    shapes = [tuple(f.shape) for f in init]
+    k = min(65536, n_valid)
+    fixed = torch.arange(k, device=dev) * n_valid // k
+    out = {"world_s": time.perf_counter() - t0}
+
+    def fresh(s, mbf, pbf):
+        params = trainer.init_params(cfg, grid, torch.Generator(device=dev).manual_seed(0))
+        params[FEATURES] = [f.to(torch.bfloat16) if pbf else f.clone() for f in init]
+        return params, init_opt_state(params, moments_bf16=mbf)
+
+    def whole(params, opt, rows):
+        ts = (params[FEATURES], opt.m[FEATURES], opt.v[FEATURES])
+        return [mesh.gather_table_rows(grp, t) if rows else [x.clone() for x in t] for t in ts]
+
+    def fixed_loss(params, feats, s):
+        p = dict(params, **{FEATURES: feats})
+        return float(trainer.batch_loss(p, grid.tables, pool_dev, fixed, s)["total_loss"])
+
+    for tag, label, layout, windows, mbf, pbf, key, steps in MULTI_RUNS:
+        steps = max(10, int(steps * steps_scale))
+        rows = layout == "rows"
+        variant = "bf16p" if pbf else ("bf16m" if mbf else "f32")
+        s = trainer.TrainSettings.from_config(cfg, grid.levels, feature_update="pallas",
+                                              fuse_update_levels=not windows,
+                                              n_used=trainer.used_rows_for(grid))
+        params, opt = fresh(s, mbf, pbf)
+        params, opt, _ = mesh.place_training_state(grp, params, opt, table_sharding=layout)
+        torch.cuda.synchronize()
+        t_win = time.perf_counter()
+        win = None
+        if windows:
+            win = trainer.precompute_batch_windows(
+                pre, n_valid, torch.Generator(device=dev).manual_seed(0), s, shapes, fused=True,
+                shards=world if rows else 0, rank=rank if rows else None,
+                deterministic=not rows)
+        torch.cuda.synchronize()
+        t_win = time.perf_counter() - t_win
+        before = fixed_loss(params, whole(params, opt, rows)[0], s)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ak.reset_launch_counts()  # this run of phase 9's path starts here
+        comm.reset_counts()
+        chunks = [1, 9] + [10] * ((steps - 10) // 10)
+        times, losses, replicas, first, start = [], [], True, None, 0
+        for n in chunks:
+            torch.cuda.synchronize()
+            t_c = time.perf_counter()
+            params, opt, aux = trainer.train_chunk(
+                params, opt, grid.tables, pool_dev, n_valid, start, gen, s, n, group=grp,
+                pre_lookups=pre, batch_windows=win)
+            losses.append(float(aux["mean"]["total_loss"]))  # syncs
+            times.append((time.perf_counter() - t_c) / n * 1e3)
+            start += n
+            saved = {op: list(c) for op, c in comm.COUNTS.items()}
+            if not rows:  # every rank's tables, moments and decoders, the same bits
+                replicas &= mesh.replicas_equal(grp, mesh.state_tensors(params, opt))
+            elif start == 1:
+                first = whole(params, opt, rows)
+            comm.COUNTS.update(saved)  # the checks' gathers are not the run's
+        counts = dict(ak.LAUNCHES)  # read right after the run
+        comm_counts = {op: list(c) for op, c in comm.COUNTS.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        final = whole(params, opt, rows)
+        after = fixed_loss(params, final[0], s)
+        busy = nccl = None
+        if tag != "e":  # the device time of 10 more steps (torch.profiler, this rank's ops)
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                params, opt, aux = trainer.train_chunk(
+                    params, opt, grid.tables, pool_dev, n_valid, start, gen, s, 10, group=grp,
+                    pre_lookups=pre, batch_windows=win)
+                torch.cuda.synchronize()
+            # NCCL's kernels spin on the card while they wait for the other
+            # ranks: their time is the collectives', not work
+            dev_ev = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.device_time_total for e in dev_ev
+                       if "nccl" not in e.name.lower()) / 1e3 / 10
+            nccl = sum(e.device_time_total for e in dev_ev
+                       if "nccl" in e.name.lower()) / 1e3 / 10
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, dict(launches=counts, peak=peak, comm=comm_counts,
+                                              busy=busy, nccl=nccl))
+        res = dict(label=label, layout=layout, steps=steps, before=before, after=after,
+                   losses=losses, ms=float(np.median(times[2:])), first_ms=times[:2],
+                   windows_s=t_win, per_rank=per_rank, replicas=replicas if not rows else None,
+                   key=key, E=win.route.E if rows else None)
+        if rows and rank == 0:
+            # the one-rank run of the same windows from the same state
+            ref_p, ref_o = fresh(s, mbf, pbf)
+            win_1 = trainer.precompute_batch_windows(
+                pre, n_valid, None, s, shapes, fused=True, window_indices=win.idx)
+            captured = []
+            real = ak.fused_adam_multi
+
+            def capture(ps, ms, vs, rows_list, g_list, *a, **kw):
+                if not captured:
+                    captured.append(([r.reshape(-1).clone() for r in rows_list],
+                                     [g.reshape(-1, g.shape[-1]).clone() for g in g_list]))
+                return real(ps, ms, vs, rows_list, g_list, *a, **kw)
+
+            ak.fused_adam_multi = capture
+            try:
+                gen_1 = torch.Generator(device=dev).manual_seed(0)
+                ref_p, ref_o, _ = trainer.train_chunk(ref_p, ref_o, grid.tables, pool_dev,
+                                                      n_valid, 0, gen_1, s, 1,
+                                                      pre_lookups=pre, batch_windows=win_1)
+            finally:
+                ak.fused_adam_multi = real
+            ref_first = whole(ref_p, ref_o, False)
+            init_tabs = [[f.to(torch.bfloat16) if pbf else f.clone() for f in init],
+                         [torch.zeros_like(x) for x in ref_first[1]],
+                         [torch.zeros_like(x) for x in ref_first[2]]]
+            err1, eq1 = _step_one_check(tag, first, ref_first, init_tabs, captured[0], s,
+                                        bias_corrections(1), variant)
+            ref_p, ref_o, _ = trainer.train_chunk(ref_p, ref_o, grid.tables, pool_dev, n_valid,
+                                                  1, gen_1, s, steps - 1, pre_lookups=pre,
+                                                  batch_windows=win_1)
+            ref_final = whole(ref_p, ref_o, False)
+            res.update(step1_err=err1, step1_equal=eq1,
+                       ref_after=fixed_loss(ref_p, ref_final[0], s),
+                       final_err=max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(final[0], ref_final[0])))
+            del ref_p, ref_o, win_1, ref_first, ref_final
+        dist.barrier()
+        out[tag] = res
+        del params, opt, win, final, first
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(out, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_multi_train(steps_scale=1.0):
+    """Phase 9's training runs over the ranks the cards allow: two ranks on
+    one card over gloo, or one rank a card over NCCL.  Returns per run the
+    launches summed over the ranks."""
+    import math
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from shine_mapping_tpu_torch.parallel import mesh
+
+    n_cards = torch.cuda.device_count()
+    world, backend = (n_cards, "nccl") if n_cards >= 2 else (2, "gloo")
+    print(f"[multi] {world} ranks over {backend} on {n_cards} card(s); the ICRA MaiCity "
+          f"config ({ICRA_CONFIG}) on the bench world, {[r[-1] for r in MULTI_RUNS]} steps")
+    with tempfile.TemporaryDirectory(prefix="smoke_multi_") as tmp:
+        out = os.path.join(tmp, "multi.pt")
+        t0 = time.perf_counter()
+        mp.start_processes(_multi_rank, args=(world, mesh.free_port(), backend, out,
+                                              steps_scale),
+                           nprocs=world, start_method="spawn", join=True)
+        res = torch.load(out, weights_only=False)
+    print(f"[multi] ranks ran in {time.perf_counter() - t0:.1f} s (bench world built in "
+          f"{res['world_s']:.1f} s a rank)")
+    launches = {}
+    for tag, *_ in MULTI_RUNS:
+        r = res[tag]
+        key = r["key"]
+        per = [p["launches"] for p in r["per_rank"]]
+        n_launch = [c[key] for c in per]
+        assert all(c == r["steps"] for c in n_launch), \
+            f"({tag}) {key}: {n_launch} launches per rank, want {r['steps']} each"
+        others = {k: n for c in per for k, n in c.items() if k not in (key, "entry_prep") and n}
+        assert not others, f"({tag}) other kernels launched: {others}"
+        for c in per:
+            for k2, n2 in c.items():
+                launches[k2] = launches.get(k2, 0) + n2
+        assert all(math.isfinite(x) for x in r["losses"]), f"({tag}) non-finite loss"
+        assert r["after"] < r["before"], f"({tag}) the fixed-sample loss did not fall"
+        comm0 = r["per_rank"][0]["comm"]
+        busy = [p["busy"] for p in r["per_rank"]]
+        if busy[0] is None:
+            idle = "not measured"
+        else:  # ranks sharing a card add up on it
+            per_card = sum(busy) if backend == "gloo" else max(busy)
+            idle = (f"device busy {[round(b, 3) for b in busy]} ms/step a rank, the "
+                    f"{'card' if backend == 'gloo' else 'busiest card'} idle "
+                    f"{1 - per_card / r['ms']:.3f}")
+            if backend == "nccl":
+                idle += (f" (NCCL kernels, waits included, "
+                         f"{[round(p['nccl'], 3) for p in r['per_rank']]} ms/step a rank)")
+        comm_s = ", ".join(f"{op} {c[0] / r['steps']:.2f} calls {c[1] / r['steps'] / 2**20:.3f} "
+                           "MiB" for op, c in comm0.items() if c[0])
+        line = (f"[multi] ({tag}) {r['label']}, {backend}: {r['steps']} steps, {r['ms']:.3f} "
+                f"ms/step (median of chunks 3+; first two {[round(x, 1) for x in r['first_ms']]}),"
+                f" launches per rank {n_launch} ({key}), collectives per step on rank 0: "
+                f"{comm_s}; peak GiB per rank {[round(p['peak'], 3) for p in r['per_rank']]}; "
+                f"fixed-sample loss {r['before']:.6f} -> {r['after']:.6f}; windows built in "
+                f"{r['windows_s']:.2f} s; {idle}")
+        if r["replicas"] is not None:
+            assert r["replicas"], f"({tag}) the replicas parted"
+            line += "; replica checksums equal on every rank after every chunk"
+        else:
+            gap = abs(r["after"] - r["ref_after"])
+            drop = r["before"] - r["ref_after"]
+            assert gap <= 0.05 * drop, \
+                f"({tag}) fixed-sample loss {r['after']} vs one rank {r['ref_after']}"
+            line += (f" (routed E {r['E']}); against the one-rank run of the same windows: "
+                     f"after step 1 tables within phase 2's tolerance plus the sum-order spread"
+                     f", bf16 elements bit-equal on rows with at most one entry, p max |d| "
+                     f"{r['step1_err']:.3e}, {r['step1_equal']:.6f} of p bit-equal; after "
+                     f"{r['steps']} steps fixed-sample loss {r['after']:.6f} vs "
+                     f"{r['ref_after']:.6f} (within 5 % of the drop), p max |d| "
+                     f"{r['final_err']:.3e}")
+        print(line)
+    return launches, res
+
+
+
+
+def _cli_check_rank(rank, world, port, backend, cfg, ckpt_path, out_path):
+    """On the two-rank run's world and checkpoint: the sharded data phase,
+    data-parallel meshing of the map's box, and the checkpoint loaded, cut
+    into row blocks, gathered and written again (rank 0 keeps the results)."""
+    import torch
+    import torch.distributed as dist
+
+    from shine_mapping_tpu_torch.cli.common import build_grid
+    from shine_mapping_tpu_torch.data.dataset import LiDARDataset
+    from shine_mapping_tpu_torch.mesher import Mesher
+    from shine_mapping_tpu_torch.parallel import mesh
+    from shine_mapping_tpu_torch.parallel.ingest import process_frames_sharded
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import FEATURES, init_opt_state
+    from shine_mapping_tpu_torch.utils import checkpoint as ckpt
+
+    grp = _join_ranks(rank, world, port, backend)
+    cfg.device = str(grp.device)
+    t0 = time.perf_counter()
+    ds = LiDARDataset(cfg, build_grid(cfg))
+    process_frames_sharded(ds, ds.frame_ids(), grp)
+    t_data = time.perf_counter() - t0
+    pool = {f: getattr(ds.pool, f) for f in ("coord", "sdf_label", "weight", "time")}
+    octree = ds.grid.state_dict()
+    skeleton = trainer.init_params(cfg, build_grid(cfg))
+    grid, params, opt, iters = ckpt.load_checkpoint(ckpt_path, skeleton,
+                                                    init_opt_state(skeleton))
+    grid.cast_features(torch.bfloat16)  # the bf16 map, as the driver resumes it
+    params[FEATURES] = list(grid.features)
+    mesher = Mesher(cfg, grid, params["geo"], params["sem"], group=grp)
+    vox, origin = mesher.grid_shape_from_bbx(ds.map_bbx, cfg.mc_res_m)
+    sdf, _, mask = mesher.query_grid_lattice(vox, origin, cfg.mc_res_m)
+    t_query = mesher.timing["query"]
+    params, opt, _ = mesh.place_training_state(grp, params, opt, table_sharding="rows")
+    grid.features = mesh.gather_table_rows(grp, params[FEATURES])
+    ckpt.save_checkpoint(out_path + ".npz", grid, params, opt, iters, grp)
+    if rank == 0:
+        torch.save({"pool": pool, "octree": octree, "sdf": sdf, "mask": mask, "vox": vox,
+                    "origin": origin, "data_s": t_data, "query_s": t_query}, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_multi_cli(iters=500, n_frames=20):
+    """[multi] cli: the batch CLI with tpu.mesh_shape 2, row-sharded tables
+    and the bf16 map mode on phase 6's world; then its sharded data phase,
+    meshing and checkpoint held against one rank's."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from shine_mapping_tpu_torch.cli.common import build_grid
+    from shine_mapping_tpu_torch.cli.shine_batch import run_shine_mapping_batch
+    from shine_mapping_tpu_torch.data.dataset import LiDARDataset
+    from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+    from shine_mapping_tpu_torch.mesher import Mesher
+    from shine_mapping_tpu_torch.parallel import mesh
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import init_opt_state
+    from shine_mapping_tpu_torch.utils import checkpoint as ckpt
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    bf16 = dict(feature_update="pallas", moments_bf16=True, batch_windows=True,
+                params_bf16=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_multi_cli_") as tmp:
+        world = os.path.join(tmp, "world")
+        _, gt_path = write_synth_sequence(world, n_frames)
+        if MAP_B not in MAP_SCORES:  # phase 6 did not run: its run B here
+            cfg_b = _map_config(world, os.path.join(tmp, "b"), iters, **bf16)
+            _map_run(MAP_B, cfg_b, gt_path, "fused_adam_multi_bf16p", 1, 1)
+        cfg = _map_config(world, os.path.join(tmp, "m"), iters, mesh_shape=2,
+                          table_sharding="rows", shard_ingest=True, **bf16)
+        t0 = time.perf_counter()
+        run_path, _, _ = run_shine_mapping_batch(cfg=cfg, backend=backend)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(run_path, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ms = [r["timing(s)/per_iter"] * 1e3 for r in recs]
+        m = eval_mesh(os.path.join(run_path, f"mesh/mesh_iter_{iters}.ply"), gt_path, **EVAL_KW)
+        gap = abs(m["F-score (%)"] - MAP_SCORES[MAP_B])
+        print(f"[multi] cli: 2 ranks over {backend}, table_sharding rows, bf16 map mode, "
+              f"{iters} steps at {float(np.median(ms[1:] or ms)):.3f} ms/step (rank 0's "
+              f"metrics.jsonl), data phase {recs[-1]['phase(s)/data']:.2f} s (sharded), run "
+              f"{wall:.1f} s; eval_mesh F-score {m['F-score (%)']:.3f} %, Chamfer-L1 "
+              f"{m['Chamfer_L1 (m)']:.4f} m (bars: < {MAP_BARS[0]} m, > {MAP_BARS[1]} %), "
+              f"{gap:.3f} points from phase 6's run B ({MAP_SCORES[MAP_B]:.3f} %; bar 5)")
+        assert m["Chamfer_L1 (m)"] < MAP_BARS[0] and m["F-score (%)"] > MAP_BARS[1], m
+        assert gap <= 5.0, f"two ranks {gap:.3f} points from run B"
+        src = os.path.join(run_path, "model", "model_final.npz")
+        out = os.path.join(tmp, "checks.pt")
+        cfg1 = dataclasses.replace(cfg, mesh_shape=1)
+        mp.start_processes(_cli_check_rank, args=(2, mesh.free_port(), backend, cfg1, src, out),
+                           nprocs=2, start_method="spawn", join=True)
+        got = torch.load(out, weights_only=False)
+        # one process: the pipelined data phase (the same per-frame rng)
+        t0 = time.perf_counter()
+        ds = LiDARDataset(cfg1, build_grid(cfg1))
+        ds.process_frames_pipelined(ds.frame_ids(), workers=4)
+        t_one = time.perf_counter() - t0
+        for f, a in got["pool"].items():
+            assert np.array_equal(a, getattr(ds.pool, f)), f"sharded ingest: pool {f} differs"
+        want = ds.grid.state_dict()
+        for k in want:
+            assert np.array_equal(np.asarray(got["octree"][k]), np.asarray(want[k])), \
+                f"sharded ingest: octree {k} differs"
+        skeleton = trainer.init_params(cfg1, build_grid(cfg1))
+        grid, params, _, _ = ckpt.load_checkpoint(src, skeleton, init_opt_state(skeleton))
+        grid.cast_features(torch.bfloat16)
+        one_m = Mesher(cfg1, grid, params["geo"])
+        sdf, _, mask = one_m.query_grid_lattice(got["vox"], got["origin"], cfg1.mc_res_m)
+        assert np.array_equal(got["mask"], mask), "data-parallel mesher: masks differ"
+        assert np.array_equal(got["sdf"], sdf), "data-parallel mesher: sdf differs"
+        a, b = np.load(src), np.load(out + ".npz")
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert np.array_equal(a[k], b[k]), f"checkpoint round trip: {k} differs"
+        print(f"[multi] cli: sharded ingest ({len(ds.pool)} samples, {got['data_s']:.2f} s on "
+              f"2 ranks; one process {t_one:.2f} s) bit-equal to the one-process pool and "
+              f"octree; data-parallel mesher ({int(np.prod(got['vox']))} voxels, query "
+              f"{got['query_s']:.3f} s on 2 ranks, {one_m.timing['query']:.3f} s on one) masks "
+              f"and sdf equal to one rank's; the rank-0 checkpoint loaded, cut into 2 row "
+              f"blocks, gathered and written again: {len(a.files)} keys bit-equal")
+    return m
+
+
+def phase_multi(steps_scale=1.0):
+    """Phase 9 ("multi"): K2's row-sharded caller against its plain version
+    and against unsharded K2, the training runs over several ranks, the
+    two-rank batch CLI.  Returns (the shard kernels' JSON entries, the
+    runs' launches summed over ranks)."""
+    t0 = time.perf_counter()
+    rows = phase_shard_kernels()
+    launches, _ = phase_multi_train(steps_scale)
+    phase_multi_cli()
+    for r in rows:
+        r["launches"] = launches.get(r["name"], 0)
+    print(f"[multi] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -2489,7 +3322,7 @@ def phase_city(n_frames=150, iters=4000, rotate=1000, n_az=1024, n_el=48, blocks
 # smoke itself is the run with no arguments)
 ALONE = {"agreement": lambda: (phase_agreement(), phase_agreement_options()),
          "map": lambda: phase_map(), "incre": lambda: phase_incre(),
-         "city": lambda: phase_city()}
+         "city": lambda: phase_city(), "multi": lambda: phase_multi()}
 
 
 def main() -> int:
@@ -2528,9 +3361,12 @@ def main() -> int:
     map_launches = phase_map()
     incre_launches = phase_incre()
     city_launches, _ = phase_city()
+    shard_rows, multi_launches = phase_multi()
     for k in kernels:  # K1/K2: counted over the training runs and the CLI runs
         k["launches"] = (launches[k["name"]] + map_launches.get(k["name"], 0)
-                         + incre_launches.get(k["name"], 0) + city_launches.get(k["name"], 0))
+                         + incre_launches.get(k["name"], 0) + city_launches.get(k["name"], 0)
+                         + multi_launches.get(k["name"], 0))
+    kernels += shard_rows  # K2's row-sharded caller: counted over phase 9's runs
     kernels += study  # K3-K7: counted over the kernel-study programs
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} never launched on its path"

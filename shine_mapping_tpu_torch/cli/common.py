@@ -1,8 +1,9 @@
 """Shared driver plumbing for the batch and incremental CLIs.
 
-Port of ``shine_mapping_tpu/cli/common.py``.  Its ``device_local`` exists
-for multi-host runs, which are ROADMAP Queue A item 14: on one card it is
-the identity and has no counterpart here.
+Port of ``shine_mapping_tpu/cli/common.py``.  Its ``device_local`` fetches
+a single controller's sharded arrays to the host; the port's ranks each
+hold their own tensors (the row-sharded tables are gathered by
+``sync_features_to_grid``), so it has no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,12 +30,14 @@ def torch_device_of(cfg: SHINEConfig) -> torch.device:
     return device
 
 
-def check_supported(cfg: SHINEConfig) -> None:
+def check_supported(cfg: SHINEConfig, several_ranks: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for the config
-    options the drivers do not run yet."""
+    options the drivers do not run yet.  ``several_ranks``: the driver runs
+    over several ranks (the batch driver does; the incremental one does
+    not yet)."""
     todo = []
-    if cfg.num_processes > 1 or cfg.mesh_shape > 1:
-        todo.append("multi-host and data-parallel runs, row-sharded windows (Queue A item 14)")
+    if (cfg.num_processes > 1 or cfg.mesh_shape > 1) and not several_ranks:
+        todo.append("the incremental driver over several ranks (Queue A item 14a)")
     if cfg.o3d_vis_on:
         todo.append("the visualizer, o3d_vis_on (Queue A item 15)")
     if todo:
@@ -134,11 +137,18 @@ def event_boundaries(total_iters: int, freqs, chunk: int):
             start += n
 
 
-def sync_features_to_grid(grid: HashGridHost, params) -> None:
+def sync_features_to_grid(grid: HashGridHost, params, group=None) -> None:
     """Point the grid at the trained tables, as training holds them: the
     port trains the grid's own tensors in place, bf16 tables included (the
     mesher widens gathered rows, ``state_dict`` writes the exact f32
-    upcast), so no table is copied."""
+    upcast), so no table is copied.  Row-sharded tables (``group``'s
+    layout ``rows``) are gathered whole on every rank first (one gather a
+    level)."""
+    if group is not None and group.world > 1 and group.table_sharding == "rows":
+        from ..parallel.mesh import gather_table_rows
+
+        grid.features = gather_table_rows(group, params[FEATURES])
+        return
     grid.features = list(params[FEATURES])
 
 

@@ -14,17 +14,31 @@ map onto the training API: ``precompute_lookups`` ->
 Every single-card training option of the JAX driver runs: the semantic
 head (vertex semantics on the meshes), the ray-major pool of the rendering
 losses (which does not rotate), and time-conditioned maps, meshed once per
-even frame at that frame's timestamp.  Not ported yet (raise
-NotImplementedError naming their ROADMAP item): multi-host, data-parallel
-and row-sharded runs (Queue A item 14); the visualizer (``o3d_vis_on``,
-item 15).
+even frame at that frame's timestamp.
+
+Several ranks (JAX shine_batch.py:54-60, :85-92, :165-181, :206-300), one
+process a card: ``tpu.mesh_shape: n`` in one launch spawns n ranks
+(``torch.multiprocessing``, start method spawn; NCCL when there are n
+cards, else gloo on the cards there are, or gloo on the CPU), and
+``tpu.num_processes`` / ``coordinator`` / ``process_id`` or torchrun's
+``RANK`` / ``WORLD_SIZE`` join ranks launched apart.  Each rank preprocesses
+its share of the frames (``tpu.shard_ingest``) and trains its share of each
+batch; ``tpu.table_sharding: replicated`` keeps the whole tables on every
+rank, ``rows`` a row block of each (with routed fused windows, K2's
+row-sharded caller).  The ranks share the meshing's queries.  Rank 0 alone
+writes the run directory: checkpoints, meshes, ``metrics.jsonl``.  Not
+ported yet (raise NotImplementedError naming their ROADMAP item):
+row-sharded tables without routed windows (Queue A item 14b); the
+visualizer (``o3d_vis_on``, item 15).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_batch <config.yaml>
+    torchrun --nproc_per_node 4 -m shine_mapping_tpu_torch.cli.shine_batch <config.yaml>
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
@@ -35,6 +49,8 @@ import torch
 from ..config import SHINEConfig
 from ..data.dataset import LiDARDataset
 from ..mesher import Mesher
+from ..parallel import comm
+from ..parallel import mesh as pmesh
 from ..train import trainer
 from ..train.optimizer import FEATURES, init_opt_state
 from ..utils import checkpoint as ckpt
@@ -78,18 +94,81 @@ class _Staged:
         return self._out
 
 
-def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | None = None):
-    """Run the batch pipeline; returns (run_path, grid, params)."""
+def _rank_entry(rank: int, world: int, port: int, cfg: SHINEConfig, config_path,
+                backend, out_file: str) -> None:
+    """One spawned rank of a ``tpu.mesh_shape: n`` launch."""
+    device = pmesh.rank_device(cfg, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    pmesh.setup_distributed(cfg, backend, f"tcp://localhost:{port}", rank, world)
+    try:
+        run_path, _, _ = run_shine_mapping_batch(config_path, cfg, group=pmesh.data_group(device))
+        if rank == 0:
+            with open(out_file, "w") as f:
+                f.write(run_path)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(cfg: SHINEConfig, config_path, backend):
+    """Run the driver on ``tpu.mesh_shape`` spawned ranks; rank 0's run
+    directory (the others' artifacts are rank 0's)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n = int(cfg.mesh_shape)
+    if backend is None:
+        cuda = torch.device(cfg.device).type == "cuda"
+        backend = "nccl" if cuda and torch.cuda.device_count() >= n else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/run_path"
+        mp.start_processes(_rank_entry, args=(n, pmesh.free_port(), cfg, config_path, backend,
+                                              out), nprocs=n, start_method="spawn", join=True)
+        with open(out) as f:
+            return f.read()
+
+
+def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | None = None,
+                            group=None, backend: str | None = None):
+    """Run the batch pipeline; returns (run_path, grid, params).
+
+    ``group``: this rank's ``parallel.mesh.DataGroup`` when the caller
+    joined the ranks.  Otherwise ``tpu.mesh_shape`` > 1 spawns that many
+    ranks and returns (rank 0's run_path, None, None), with ``backend``
+    (``nccl`` / ``gloo``; by default NCCL when each rank has a card, else
+    gloo); and ``tpu.num_processes`` or torchrun's environment join this
+    process to its ranks."""
     if cfg is None:
         if config_path is None:
             sys.exit("Please provide the path to the config file.\n"
                      "Try: python -m shine_mapping_tpu_torch.cli.shine_batch xxx_config.yaml")
         cfg = SHINEConfig().load(config_path)
-    device = torch_device_of(cfg)
-    check_supported(cfg)
+    torch_device_of(cfg)  # raises here when the card is asked for and absent
+    check_supported(cfg, several_ranks=True)
+    if group is None:
+        if cfg.mesh_shape > 1 and cfg.num_processes <= 1 and "WORLD_SIZE" not in os.environ:
+            return _spawn_ranks(cfg, config_path, backend), None, None
+        rank, world = pmesh.setup_distributed(cfg, backend)
+        if world > 1:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            device = pmesh.rank_device(cfg, local)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            group = pmesh.data_group(device)
+    if group is not None and group.world == 1:
+        group = None
+    device = torch_device_of(cfg) if group is None else group.device
+    primary = group is None or group.primary
+    say = print if primary else (lambda *a, **k: None)
+    if group is not None:
+        say(f"{group.world} ranks over {group.backend} (tables {cfg.table_sharding})")
 
-    run_path = setup_experiment(cfg, config_path)
-    logger = MetricsLogger(run_path, cfg.wandb_vis_on, run_name=cfg.name)
+    if primary:
+        run_path = setup_experiment(cfg, config_path)
+    if group is not None:  # the others take rank 0's run directory
+        run_path = comm.gather_bytes(group, run_path.encode() if primary else b"")[0].decode()
+    logger = MetricsLogger(run_path, cfg.wandb_vis_on, run_name=cfg.name) if primary else None
 
     grid = build_grid(cfg)
     # load pretrained decoders / resume a full map checkpoint BEFORE the
@@ -98,18 +177,25 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
     dataset = LiDARDataset(cfg, grid)
 
     # ---------------------------------------------------------------- data phase
-    print("Load, preprocess and sample data")
+    say("Load, preprocess and sample data")
     timer = PhaseTimer()
     with timer.phase("data"):
-        if cfg.num_workers > 1:
+        if group is not None and cfg.shard_ingest:
+            # each rank preprocesses its share of the frames; every rank
+            # integrates all (bit-identical to a one-process data phase)
+            from ..parallel.ingest import process_frames_sharded
+
+            process_frames_sharded(dataset, dataset.frame_ids(), group)
+        elif cfg.num_workers > 1:
             dataset.process_frames_pipelined(dataset.frame_ids(), cfg.num_workers)
         else:
             for frame_id in dataset.frame_ids():
                 dataset.process_frame(frame_id)
-    print(f"data phase: {timer.totals['data']:.1f} s, pool={len(dataset.pool)} samples")
+    say(f"data phase: {timer.totals['data']:.1f} s, pool={len(dataset.pool)} samples")
     # release the accumulate buffers' doubling headroom (up to 2x pool RAM)
     dataset.finalize_pool()
-    grid.print_detail()
+    if primary:
+        grid.print_detail()
 
     params = trainer.init_params(cfg, grid, torch.Generator(device).manual_seed(cfg.seed))
     if loaded_decoders:
@@ -124,14 +210,16 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         n_used=trainer.used_rows_for(grid, granularity=64),
     )
 
-    mesher = Mesher(cfg, grid, params["geo"], params["sem"])
+    # the ranks share the meshing's queries; rank 0 marches and writes
+    mesher = Mesher(cfg, grid, params["geo"], params["sem"], group=group)
     mesher.global_transform = np.linalg.inv(dataset.begin_pose_inv)
-    with timer.phase("map-export"):
-        dataset.write_merged_pc(run_path + "/map/pc_map_down.ply")
+    if primary:
+        with timer.phase("map-export"):
+            dataset.write_merged_pc(run_path + "/map/pc_map_down.ply")
 
     if resume:
         opt_state = pad_opt_state_features(loaded_opt, params)
-        print(f"Resuming from iter {start_iter} (optimizer state restored)")
+        say(f"Resuming from iter {start_iter} (optimizer state restored)")
     else:
         # bf16 moments only when the resolved update is the kernel's
         opt_state = init_opt_state(
@@ -145,8 +233,8 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
             sub = pool_rng.integers(0, len(dataset.pool), capacity)
             dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device, sub,
                                                        settings)
-            print(f"pool {len(dataset.pool)} > device budget {capacity}: rotating "
-                  f"sub-pools every {cfg.pool_rotate_iters} iters")
+            say(f"pool {len(dataset.pool)} > device budget {capacity}: rotating "
+                f"sub-pools every {cfg.pool_rotate_iters} iters")
         else:
             capacity = pool_capacity_for(len(dataset.pool), cfg.init_pool_capacity)
             dev_pool, n_valid = trainer.pool_to_device(dataset.pool, capacity, device,
@@ -157,27 +245,42 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
     hbm.sample("upload")
 
     # ---------------------------------------------------------------- training
-    print("Begin mapping")
+    say("Begin mapping")
     feat_shapes = [tuple(f.shape) for f in grid.features]
     use_winx = cfg.windows_fused
     use_windows = (cfg.batch_windows and cfg.precompute_lookups
                    and trainer.batch_windows_ok(settings, feat_shapes, use_winx))
     if cfg.batch_windows and not use_windows:
-        print("tpu.batch_windows requested but prerequisites unmet "
-              "(needs the pallas update, point loss, no consistency, "
-              "precompute_lookups) — falling back to iid batches")
+        say("tpu.batch_windows requested but prerequisites unmet "
+            "(needs the pallas update, point loss, no consistency, "
+            "precompute_lookups) — falling back to iid batches")
+    # row-sharded tables train through routed fused windows: each rank
+    # gathers and updates its row blocks (K2's row-sharded caller)
+    rows = group is not None and cfg.table_sharding == "rows"
+    n_shards = group.world if rows else 0
+    if rows and not (use_windows and use_winx
+                     and trainer.shard_windows_ok(settings, feat_shapes, n_shards)):
+        raise NotImplementedError(
+            "not ported yet, see ROADMAP.md: row-sharded tables without routed windows "
+            "(Queue A item 14b); table_sharding: rows needs batch_windows + windows_fused, "
+            "precompute_lookups, the pallas update and tables and a batch that split evenly "
+            f"over {group.world} ranks")
     # device-memory guard: the windows live for the whole run beside the map
     # and the pool (with rotation also the staged next pool); the estimate
     # is the per-level layout's, which holds at least the fused one's bytes,
     # so an over-budget run goes straight to iid batches
     n_live = capacity if rotate_pool else len(dataset.pool)
-    est = trainer.estimate_windows_bytes(n_live, settings, feat_shapes)
+    # one rank's bytes (routed windows: its share)
+    est = trainer.estimate_windows_bytes(n_live, settings, feat_shapes, shards=n_shards)
     if rotate_pool:
         est += sum(a.nbytes for a in dev_pool.values())
     if use_windows and est > cfg.windows_hbm_budget_gb * (1 << 30):
-        print(f"window precompute would hold ~{est / 2**30:.1f} GiB (> "
-              f"tpu.windows_hbm_budget_gb {cfg.windows_hbm_budget_gb}) — falling back "
-              "to iid batches")
+        if rows:
+            raise ValueError(f"routed windows would hold ~{est / 2**30:.1f} GiB a rank (> "
+                             f"tpu.windows_hbm_budget_gb {cfg.windows_hbm_budget_gb})")
+        say(f"window precompute would hold ~{est / 2**30:.1f} GiB (> "
+            f"tpu.windows_hbm_budget_gb {cfg.windows_hbm_budget_gb}) — falling back "
+            "to iid batches")
         use_windows = False
     # bf16 map mode: tables stored bfloat16, stochastic-rounding update.  A
     # resume casts the checkpoint's tables (their exact f32 upcast) back
@@ -185,13 +288,17 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
     use_params_bf16 = (cfg.params_bf16 and use_windows and use_winx
                        and opt_state.m[FEATURES][0].dtype == torch.bfloat16)
     if cfg.params_bf16 and not use_params_bf16:
-        print("tpu.params_bf16 requested but prerequisites unmet (needs "
-              "batch_windows + windows_fused, moments_bf16) — keeping f32 tables")
+        say("tpu.params_bf16 requested but prerequisites unmet (needs "
+            "batch_windows + windows_fused, moments_bf16) — keeping f32 tables")
     if use_params_bf16:
         grid.cast_features(torch.bfloat16)
         params[FEATURES] = list(grid.features)
-        print("bf16 map mode: feature tables stored bfloat16 "
-              "(stochastic-rounding Adam; half map memory)")
+        say("bf16 map mode: feature tables stored bfloat16 "
+            "(stochastic-rounding Adam; half map memory)")
+    if group is not None:
+        # every rank built the same state; rows keeps each rank's blocks
+        params, opt_state, _ = pmesh.place_training_state(
+            group, params, opt_state, table_sharding=cfg.table_sharding)
 
     def make_pre():
         if not cfg.precompute_lookups:
@@ -206,8 +313,16 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
             return None
         win = trainer.precompute_batch_windows(
             pre, n_live, torch.Generator(device).manual_seed(seed_for(cfg.seed, 0x5157)),
-            settings, [tuple(f.shape) for f in params[FEATURES]], fused=use_winx)
-        print(f"{'fused' if use_winx else 'per-level'} windows: W={win.n_windows}")
+            settings, feat_shapes, fused=use_winx, shards=n_shards,
+            rank=group.rank if rows else None, deterministic=group is not None and not rows)
+        if rows:
+            rt = win.route
+            held = sum(t.nbytes for t in (win.idx, rt.serve, rt.recv_inv, rt.owner_sel,
+                                          rt.pre.rows, rt.pre.order, rt.pre.tile_off))
+            say(f"routed row-sharded windows over {n_shards} ranks: W={win.n_windows} "
+                f"E={rt.E}, {held / 2**30:.3f} GiB a rank")
+        else:
+            say(f"{'fused' if use_winx else 'per-level'} windows: W={win.n_windows}")
         return win
 
     chunks = list(event_boundaries(cfg.iters, (cfg.save_freq_iters, cfg.vis_freq_iters),
@@ -261,11 +376,11 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         with timer.phase("train"), device_trace(cfg.profile_dir if trace_this else None):
             params, opt_state, aux = trainer.train_chunk(
                 params, opt_state, grid.tables, dev_pool, n_valid, start, gen, settings, n,
-                pre_lookups=pre_lookups, batch_windows=batch_windows)
+                group=group, pre_lookups=pre_lookups, batch_windows=batch_windows)
             t1 = get_time(device)
         if trace_this:
             profiled = True
-            print(f"profiler trace written to {cfg.profile_dir}")
+            say(f"profiler trace written to {cfg.profile_dir}")
         iters_since_rotate += n
         done_iters = start + n
         hbm.sample("train")
@@ -278,18 +393,19 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
             "pool_samples": len(dataset.pool),
             "pool/rotations": n_rotations,
         })
-        print(f"iter {done_iters}/{cfg.iters} loss {rec['loss/total_loss']:.4f} "
-              f"({rec['samples_per_s'] / 1e6:.2f}M samples/s)")
+        say(f"iter {done_iters}/{cfg.iters} loss {rec['loss/total_loss']:.4f} "
+            f"({rec['samples_per_s'] / 1e6:.2f}M samples/s)")
 
         if cfg.save_freq_iters > 0 and done_iters % cfg.save_freq_iters == 0 \
                 and done_iters < cfg.iters:
-            sync_features_to_grid(grid, params)
+            sync_features_to_grid(grid, params, group)
             name = f"{run_path}/model/model_iter_{done_iters}"
-            ckpt.save_checkpoint(f"{name}.npz", grid, params, opt_state, done_iters)
-            ckpt.save_decoders(f"{name}_decoders.npz", params)
+            ckpt.save_checkpoint(f"{name}.npz", grid, params, opt_state, done_iters, group)
+            if primary:
+                ckpt.save_decoders(f"{name}_decoders.npz", params)
         if cfg.vis_freq_iters > 0 and done_iters % cfg.vis_freq_iters == 0:
-            sync_features_to_grid(grid, params)
-            print("Begin mesh reconstruction from the implicit map")
+            sync_features_to_grid(grid, params, group)
+            say("Begin mesh reconstruction from the implicit map")
             # a time-conditioned map gives one mesh per even frame, at that
             # frame's timestamp (shine_batch.py:248-264)
             stamps = ([None] if not cfg.time_conditioned
@@ -309,27 +425,32 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                                                      mesh_path, map_path, cfg.save_map,
                                                      cfg.semantic_on)
             peak = hbm.sample("mesh")
-            rec.update({"mesh/vertices": mesh.vertices.shape[0],
-                        "mesh/triangles": mesh.triangles.shape[0],
-                        "mesh/peak_gb": round(peak / 2**30, 3)})
-            rec.update({f"mesh(s)/{k}": v for k, v in mesher.timing.items()})
-            print(f"mesh: {mesh.vertices.shape[0]} vertices, {mesh.triangles.shape[0]} "
-                  "triangles; " + ", ".join(f"{k} {v:.3f} s" for k, v in mesher.timing.items())
-                  + f"; peak device memory {peak / 2**30:.3f} GiB")
+            if mesh is not None:  # rank 0's
+                rec.update({"mesh/vertices": mesh.vertices.shape[0],
+                            "mesh/triangles": mesh.triangles.shape[0],
+                            "mesh/peak_gb": round(peak / 2**30, 3)})
+                rec.update({f"mesh(s)/{k}": v for k, v in mesher.timing.items()})
+                say(f"mesh: {mesh.vertices.shape[0]} vertices, {mesh.triangles.shape[0]} "
+                    "triangles; " + ", ".join(f"{k} {v:.3f} s"
+                                              for k, v in mesher.timing.items())
+                    + f"; peak device memory {peak / 2**30:.3f} GiB")
         rec.update({f"phase(s)/{p}": v for p, v in timer.summary().items()})
         rec["hbm/peak_live_gb"] = round(hbm.peak_live / 2**30, 3)
-        logger.log(rec)
+        if logger is not None:
+            logger.log(rec)
 
-    print(f"training: {time.time() - t_train0:.1f} s for {done_iters} iters")
-    sync_features_to_grid(grid, params)
+    say(f"training: {time.time() - t_train0:.1f} s for {done_iters} iters")
+    sync_features_to_grid(grid, params, group)
     with timer.phase("checkpoint"):
         ckpt.save_checkpoint(f"{run_path}/model/model_final.npz", grid, params, opt_state,
-                             done_iters)
-        ckpt.save_decoders(f"{run_path}/model/model_final_decoders.npz", params)
-    print("phase totals(s): " + ", ".join(f"{p}={v:.1f}" for p, v in timer.summary().items()))
+                             done_iters, group)
+        if primary:
+            ckpt.save_decoders(f"{run_path}/model/model_final_decoders.npz", params)
+    say("phase totals(s): " + ", ".join(f"{p}={v:.1f}" for p, v in timer.summary().items()))
     hrep = hbm.report()
-    print(f"peak device memory: {hrep['peak_live_gb']} GiB {hrep['samples_gb']}")
-    logger.close()
+    say(f"peak device memory: {hrep['peak_live_gb']} GiB {hrep['samples_gb']}")
+    if logger is not None:
+        logger.close()
     return run_path, grid, params
 
 

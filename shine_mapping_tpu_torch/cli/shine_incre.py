@@ -18,8 +18,8 @@ when ``tpu.batch_windows`` and ``windows_fused`` ask for them and they fit
 
 Every single-card update mode runs, ``feature_update: sparse`` with the
 reg among them.  Not ported yet (raise NotImplementedError naming their
-ROADMAP item): multi-host and data-parallel runs (Queue A item 14); the
-visualizer (``o3d_vis_on``, item 15).
+ROADMAP item): runs over several ranks (Queue A item 14a; the batch
+driver has them); the visualizer (``o3d_vis_on``, item 15).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_incre <config.yaml>

@@ -53,6 +53,23 @@
 // (prng_seed(seed + t), :194); keying by element makes the result
 // independent of the tile size and of the grid.
 //
+// Row shards (K2's row-sharded caller, fused_adam_packed_shard,
+// adam_kernel.py:528).  A shard's tables are one contiguous row block of each
+// level's table; the _ex entry points take each block's first row in its
+// whole table, and the Philox counter counts groups from there, so a shard's
+// stochastic rounding draws the bits the unsharded step draws for the same
+// elements (0 on the unsharded path: its bits do not change).  A shard
+// sweeps its whole blocks (n_used = the block's rows): rows no entry has
+// reached hold zero moments and take an exact no-op step.
+//
+// Deterministic sum (det, the _ex entry points).  The atomics leave the
+// order of a row's sum to the hardware, so two launches on the same entries
+// may differ in the last bit where a row has two or more entries.  Replicas
+// that must stay equal (data-parallel ranks updating the same tables) set
+// det and pass a prep sorted by row inside each tile (the plain prep's
+// stable sort; the wrappers refuse any other prep): the thread at the head
+// of each row's run sums it in entry order, as index_add_ does on the CPU.
+//
 // Bound: memory bandwidth.  Per step the kernel reads and writes p, m and v
 // over the used heads -- 24 B per table element for f32 p/m/v, 16 B for f32
 // p with bf16 m/v, 12 B for bf16 p/m/v -- plus 8 + 4 D bytes per binned
@@ -113,6 +130,7 @@ struct Levels {
   long long ent_off[MAX_LEVELS];  // first entry of level l in the concatenation
   long long row_off[MAX_LEVELS];  // first global row of level l
   long long n_used[MAX_LEVELS];   // rows swept of level l (its used head)
+  long long grp_base[MAX_LEVELS]; // Philox group of the table's first element
   int tile_lo[MAX_LEVELS + 1];    // first tile of level l; [L] = total tiles
   float lr[MAX_LEVELS];           // learning rate of level l
   int n_levels;
@@ -289,7 +307,8 @@ __device__ __forceinline__ void finish_group(const Group<P, Mt>& r, P* p, Mt* m,
 template <typename P, typename Mt, bool GRADS_BF16>
 __global__ void __launch_bounds__(THREADS) fused_adam_kernel(
     const int* __restrict__ rows, const int* __restrict__ order,
-    const int* __restrict__ tile_off, int D, int tb, Levels lv, Hyper h, unsigned seed) {
+    const int* __restrict__ tile_off, int D, int tb, Levels lv, Hyper h, unsigned seed,
+    int det) {
   extern __shared__ float4 smem4[];
   float* gtile = reinterpret_cast<float*>(smem4);
 
@@ -323,18 +342,37 @@ __global__ void __launch_bounds__(THREADS) fused_adam_kernel(
     const float* __restrict__ g = lv.g[l];
     const long long eo = lv.ent_off[l];
     const int n = (hi - lo) * D;
-    for (int e = threadIdx.x; e < n; e += THREADS) {
-      const int j = lo + e / D;
-      const int d = e - (e / D) * D;
-      float gv = g[((long long)order[j] - eo) * D + d];
-      if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
-      atomicAdd(&gtile[(int)(rows[j] - row0) * D + d], gv);
+    if (det) {
+      // entries sorted by row inside the tile (the plain prep's stable
+      // sort): the thread at a run's head sums the run in entry order, so
+      // every launch on the same entries gives the same bits
+      for (int e = threadIdx.x; e < n; e += THREADS) {
+        const int j = lo + e / D;
+        const int d = e - (e / D) * D;
+        const int r = rows[j];
+        if (j > lo && rows[j - 1] == r) continue;
+        float acc = 0.f;
+        for (int i = j; i < hi && rows[i] == r; ++i) {
+          float gv = g[((long long)order[i] - eo) * D + d];
+          if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
+          acc = __fadd_rn(acc, gv);
+        }
+        gtile[(int)(r - row0) * D + d] = acc;
+      }
+    } else {
+      for (int e = threadIdx.x; e < n; e += THREADS) {
+        const int j = lo + e / D;
+        const int d = e - (e / D) * D;
+        float gv = g[((long long)order[j] - eo) * D + d];
+        if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
+        atomicAdd(&gtile[(int)(rows[j] - row0) * D + d], gv);
+      }
     }
     __syncthreads();
   }
 
   const float lr = lv.lr[l];
-  const long long grp0 = base >> 3;
+  const long long grp0 = lv.grp_base[l] + (base >> 3);
   const float* gt = touched ? gtile : nullptr;
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
@@ -353,7 +391,7 @@ __global__ void __launch_bounds__(THREADS) fused_adam_kernel(
 template <typename P, typename Mt, bool GB>
 static int launch_t(unsigned tiles, size_t smem, cudaStream_t s, const int* rows,
                     const int* order, const int* tile_off, int D, int tb, const Levels& lv,
-                    const Hyper& h, unsigned seed) {
+                    const Hyper& h, unsigned seed, int det) {
   if (smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(fused_adam_kernel<P, Mt, GB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -361,7 +399,7 @@ static int launch_t(unsigned tiles, size_t smem, cudaStream_t s, const int* rows
     if (e != cudaSuccess) return (int)e;
   }
   fused_adam_kernel<P, Mt, GB><<<tiles, THREADS, smem, s>>>(rows, order, tile_off, D, tb, lv,
-                                                             h, seed);
+                                                             h, seed, det);
   return 0;
 }
 
@@ -375,7 +413,7 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
                   const int* tile_off, int D, int tb, int n_levels, const long long* row_off,
                   const long long* n_used, const float* lr, float b1, float b2, float omb1,
                   float omb2, float bc1, float bc2, float eps, int grads_bf16, unsigned seed,
-                  void* stream) {
+                  void* stream, const long long* row_base, int det) {
   if (n_levels < 1 || n_levels > MAX_LEVELS || D < 1 || tb < 8 || tb % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)tb * D * sizeof(float);
@@ -384,6 +422,11 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
   long long tiles = 0;
   for (int l = 0; l < n_levels; ++l) {
     if (n_used[l] < 0) return (int)cudaErrorInvalidValue;
+    // a shard's elements keep the noise of their place in the whole table,
+    // which needs its first element on a group of 8
+    const long long e0 = row_base == nullptr ? 0 : row_base[l] * D;
+    if (e0 < 0 || e0 % 8 != 0) return (int)cudaErrorInvalidValue;
+    lv.grp_base[l] = e0 >> 3;
     lv.p[l] = p[l];
     lv.m[l] = m[l];
     lv.v[l] = v[l];
@@ -403,9 +446,9 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
     cudaStream_t s = (cudaStream_t)stream;
     const int err = grads_bf16
         ? launch_t<P, Mt, true>((unsigned)tiles, smem, s, rows, order, tile_off, D, tb, lv, h,
-                                seed)
+                                seed, det)
         : launch_t<P, Mt, false>((unsigned)tiles, smem, s, rows, order, tile_off, D, tb, lv, h,
-                                 seed);
+                                 seed, det);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
@@ -423,14 +466,33 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
 
 extern "C" {
 
-int fused_adam_f32(FUSED_ADAM_ARGS) { return launch<float, float>(FUSED_ADAM_PASS); }
+int fused_adam_f32(FUSED_ADAM_ARGS) {
+  return launch<float, float>(FUSED_ADAM_PASS, nullptr, 0);
+}
 
 int fused_adam_f32p_bf16m(FUSED_ADAM_ARGS) {
-  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS);
+  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS, nullptr, 0);
 }
 
 int fused_adam_bf16p_bf16m(FUSED_ADAM_ARGS) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS);
+  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS, nullptr, 0);
+}
+
+// The same three with a row shard's place in the whole tables and the
+// deterministic sum: row_base (HOST, n_levels entries) is the first row of
+// each level's block in its whole table (its Philox groups are those of the
+// whole table; nullptr = 0), det sums each row's entries in the prep's
+// order instead of with atomics.
+int fused_adam_ex_f32(FUSED_ADAM_ARGS, const long long *row_base, int det) {
+  return launch<float, float>(FUSED_ADAM_PASS, row_base, det);
+}
+
+int fused_adam_ex_f32p_bf16m(FUSED_ADAM_ARGS, const long long *row_base, int det) {
+  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS, row_base, det);
+}
+
+int fused_adam_ex_bf16p_bf16m(FUSED_ADAM_ARGS, const long long *row_base, int det) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS, row_base, det);
 }
 
 }  // extern "C"

@@ -158,3 +158,30 @@ def shadow_from_jax(jax_shadow: Dict[str, Any], device="cuda") -> Dict[str, Any]
 def shadow_to_jax(shadow: Dict[str, Any]) -> Dict[str, Any]:
     """The port's shadow -> the JAX package's layout (numpy tuples)."""
     return {k: tuple(_table_to_numpy(t) for t in shadow[k]) for k in SHADOW}
+
+
+def shard_rows(tables, rank: int, world: int):
+    """Rank ``rank``'s row block of each level's table (``(C_l, D)``, numpy
+    or torch): rows ``[rank C_l / world, (rank + 1) C_l / world)``, the
+    port's row-sharded layout (``ops.adam_kernel.shard_geometry``).  Takes
+    the features, a moment's tables or a shadow's; returns copies of the
+    same kind.  The tests feed one global state to both packages with it."""
+    out = []
+    for t in tables:
+        C = int(t.shape[0])
+        if C % world:
+            raise ValueError(f"a table of {C} rows does not split over {world} ranks")
+        b = C // world
+        blk = t[rank * b:(rank + 1) * b]
+        out.append(blk.clone() if isinstance(blk, torch.Tensor) else np.array(blk))
+    return out
+
+
+def gather_rows(blocks_by_rank):
+    """The inverse of :func:`shard_rows`: ``blocks_by_rank[k]`` is rank k's
+    per-level blocks; returns each level's whole table (numpy or torch, as
+    given)."""
+    out = []
+    for lv in zip(*blocks_by_rank):
+        out.append(torch.cat(lv) if isinstance(lv[0], torch.Tensor) else np.concatenate(lv))
+    return out

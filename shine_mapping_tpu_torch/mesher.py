@@ -22,9 +22,15 @@ field bit for bit.
 Vertex semantics (``estimate_sem``): the ``sem`` decoder's argmax at every
 vertex, queried on the device, coloured by ``labels_to_colors``, and the
 free-space (class 0) vertices dropped (utils/mesher.py:224-238).  A
-time-conditioned map is queried at the timestamp ``Mesher.ts``.  Not ported
-yet (raises NotImplementedError naming its ROADMAP item): the data-parallel
-``dp_mesh`` (Queue A item 14).
+time-conditioned map is queried at the timestamp ``Mesher.ts``.
+
+Data-parallel meshing (JAX ``dp_mesh``, mesher.py:354-421, :681): with a
+``group`` of several ranks, each rank queries a contiguous share of the
+lattice blocks and every rank gathers them all (one gather of the sdf and
+one of the mask); rank 0 marches and writes the mesh, the others return
+None.  Each block's field depends on its block alone, so the masks and sdf
+are bit-equal to one rank's.  The ranks need the whole tables (row-sharded
+training gathers them first, ``parallel.mesh.gather_table_rows``).
 """
 
 from __future__ import annotations
@@ -160,12 +166,23 @@ def _block_offsets(vb: int, npb: int, step: float, device):
 def _infer_blocks(geo: Decoder, features, tables, origins: torch.Tensor, step: float,
                   vb: int, levels, poly_on: bool, check_level: int,
                   n_list: Optional[Sequence[int]] = None, npb: Optional[int] = None,
-                  ts: Optional[float] = None):
+                  ts: Optional[float] = None, group=None):
     """SDF and mask of every point of the blocks whose origins ``origins``
     (B, 3) lists, vb^3 points a block at ``step`` apart, ``npb`` blocks a
     chunk (B a multiple of it): the node-lattice path with ``n_list``, else
     the direct per-point path; a time-conditioned decoder at ``ts``.
-    Block-major outputs, (B * vb^3,) each, on the device."""
+    Block-major outputs, (B * vb^3,) each, on the device.  ``group`` of n
+    ranks (B a multiple of n npb): rank k infers blocks ``[k B / n, (k + 1)
+    B / n)`` and every rank gathers all."""
+    if group is not None and group.world > 1:
+        from .parallel import comm
+
+        share = origins.shape[0] // group.world
+        mine = origins[group.rank * share:(group.rank + 1) * share]
+        s, m = _infer_blocks(geo, features, tables, mine, step, vb, levels, poly_on,
+                             check_level, n_list, npb, ts)
+        return (comm.all_gather(group, s).reshape(-1),
+                comm.all_gather(group, m.to(torch.uint8)).reshape(-1).bool())
     device = origins.device
     block = vb ** 3
     B = origins.shape[0]
@@ -203,11 +220,9 @@ def _grid_block_origins(origin_s: np.ndarray, step: float, vb: int, nbx: int, nb
 
 class Mesher:
     def __init__(self, config: SHINEConfig, grid, geo_params: Decoder,
-                 sem_params: Optional[Decoder] = None, dp_mesh=None):
-        if dp_mesh is not None:
-            raise NotImplementedError(
-                "not ported yet, see ROADMAP.md: data-parallel meshing (dp_mesh, "
-                "Queue A item 14)")
+                 sem_params: Optional[Decoder] = None, group=None):
+        # a parallel.mesh.DataGroup: the ranks share the query (module doc)
+        self.group = group if group is not None and group.world > 1 else None
         self.config = config
         self.grid = grid  # HashGridHost
         self.geo_params = geo_params  # the geometry Decoder
@@ -237,6 +252,15 @@ class Mesher:
 
     def _args(self):
         return (self.geo_params, list(self.grid.features), list(self.grid.tables))
+
+    def _chunks(self, n_blocks: int, npb: int) -> int:
+        """Chunks of ``npb`` blocks for ``n_blocks``, a whole number per rank."""
+        n = 1 if self.group is None else self.group.world
+        return -(-n_blocks // (npb * n)) * n
+
+    @property
+    def _writes(self) -> bool:
+        return self.group is None or self.group.primary
 
     # ------------------------------------------------------------------ queries
     @torch.no_grad()
@@ -310,14 +334,14 @@ class Mesher:
         npb = max(1, min(self.config.infer_bs // block, lattice_cap))
         nbx, nby, nbz = (-(int(v) // -vb) for v in voxel_num_xyz)
         NB = nbx * nby * nbz
-        K = math.ceil(NB / npb)
+        K = self._chunks(NB, npb)
         origin_s = (np.asarray(voxel_origin, np.float64) * self.world_scale).astype(np.float32)
         step32 = float(np.float32(step))
         origins = _grid_block_origins(origin_s, step32, vb, nbx, nby, nbz, K * npb,
                                       self.device)
         sdf, mask = _infer_blocks(*self._args(), origins, step32, vb,
                                   tuple(self.grid.levels), self.grid.polynomial_interpolation,
-                                  self._check_level(), n_list, npb, self._ts())
+                                  self._check_level(), n_list, npb, self._ts(), self.group)
         t1 = _sync(self.device)
         sdf, mask = sdf.cpu().numpy(), mask.cpu().numpy()
         self.timing = {"query": t1 - t0, "readback": time.perf_counter() - t1}
@@ -432,10 +456,13 @@ class Mesher:
                        save_map: bool = False, estimate_sem: bool = False,
                        estimate_normal: bool = True, filter_isolated_mesh: bool = True,
                        filter_free_space_vertices: bool = True) -> io.TriangleMesh:
-        """Dense bounding-box reconstruction (utils/mesher.py:253-290)."""
+        """Dense bounding-box reconstruction (utils/mesher.py:253-290).
+        Over a group of ranks, None on every rank but 0."""
         voxel_num_xyz, voxel_origin = self.grid_shape_from_bbx(bbx, voxel_size)
         mc_sdf, _, mc_mask3 = self.query_grid_lattice(voxel_num_xyz, voxel_origin, voxel_size)
         timing = dict(self.timing)
+        if not self._writes:
+            return None  # rank 0 marches and writes
         if save_map:
             # grid coords derive from indices; flatten in grid order to
             # match the 3D query outputs (get_query_from_bbx layout)
@@ -458,7 +485,8 @@ class Mesher:
                           filter_free_space_vertices: bool = True) -> io.TriangleMesh:
         """Octree-tiled reconstruction at ``query_level``
         (utils/mesher.py:292-368): query per-node grid blocks through their
-        node lattices, paste into a global grid, then one marching pass."""
+        node lattices, paste into a global grid, then one marching pass.
+        Over a group of ranks, None on every rank but 0."""
         nodes = self.grid.get_octree_nodes(query_level)  # centers, [-1,1]
         if nodes.shape[0] == 0:
             return io.TriangleMesh(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
@@ -485,7 +513,7 @@ class Mesher:
         lattice_cap = max(1, _LATTICE_CAP // (block * max(n_list) ** 3 * 4))
         npb = max(1, min(self.config.infer_bs // block, lattice_cap))
         n_nodes = nodes.shape[0]
-        K = math.ceil(n_nodes / npb)
+        K = self._chunks(n_nodes, npb)
         origins = (nodes - 0.5 * (node_res - mc_res_scaled)).astype(np.float32)
         # padded origins sit outside [-1,1]: their outputs are not pasted
         origins = np.concatenate(
@@ -493,11 +521,14 @@ class Mesher:
         sdf_pred, mc_mask = _infer_blocks(
             *self._args(), torch.from_numpy(origins).to(self.device),
             float(np.float32(mc_res_scaled)), vox_per_node, tuple(self.grid.levels),
-            self.grid.polynomial_interpolation, self._check_level(), n_list, npb, self._ts())
+            self.grid.polynomial_interpolation, self._check_level(), n_list, npb, self._ts(),
+            self.group)
         t1 = _sync(self.device)
         sdf_pred = sdf_pred.cpu().numpy()
         mc_mask = mc_mask.cpu().numpy() if self.config.mc_mask_on else None
         t2 = time.perf_counter()
+        if not self._writes:
+            return None  # rank 0 marches and writes
         box = (vox_per_node,) * 3
         for k in range(n_nodes):
             sdf3, _, mask3 = self.assign_to_bbx(

@@ -9,6 +9,9 @@ Port of the TPU kernels of ``shine_mapping_tpu/ops/adam_kernel.py``:
   ``fused_adam_packed_multi`` and ``fused_adam_packed_multi_pre``, which run
   on the levels' tables concatenated; here the kernel takes one base pointer
   per level, so the tables stay where they are).
+* :func:`fused_adam_shard` — K2 over one row shard: each level's contiguous
+  block of rows, every row swept, entries routed to it (K2's row-sharded
+  caller ``fused_adam_packed_shard``, adam_kernel.py:528).
 
 Both launch the one CUDA kernel of ``csrc/fused_adam.cu`` (K1 with one
 level).  The table dtypes pick its variant (:data:`VARIANTS`): float32 p, m
@@ -76,6 +79,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_adam": 0, "fused_adam_bf16m": 0,
     "fused_adam_multi": 0, "fused_adam_multi_bf16m": 0, "fused_adam_multi_bf16p": 0,
     "entry_prep": 0,  # csrc/entry_prep.cu, one per prep (its three kernels)
+    # K2 over one row shard (fused_adam_shard)
+    "fused_adam_multi_shard": 0, "fused_adam_multi_shard_bf16m": 0,
+    "fused_adam_multi_shard_bf16p": 0,
 }
 
 MAX_LEVELS = 16  # csrc/fused_adam.cu MAX_LEVELS
@@ -192,10 +198,13 @@ class EntryPrep(NamedTuple):
     dropped:  () int64 — entries past a used head (trashbin rows excluded)
     sizes, n_used, tb: the per-level table rows, used heads and rows per
               tile it was built for
+    sorted_by_row: the entries are sorted by (row, entry), so each row's
+              entries lie next to each other (what the kernel's
+              deterministic sum reads)
 
     The plain version (CPU tensors) sorts the entries by row, stably: one
-    valid grouping.  The kernel's (CUDA tensors) leaves the order inside a
-    tile to its atomics.
+    valid grouping, sorted.  The kernel's (CUDA tensors) leaves the order
+    inside a tile to its atomics: not sorted.
     """
 
     rows: torch.Tensor
@@ -205,6 +214,7 @@ class EntryPrep(NamedTuple):
     sizes: Tuple[int, ...]
     n_used: Tuple[int, ...]
     tb: int
+    sorted_by_row: bool = False
 
 
 def entry_prep(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
@@ -273,8 +283,8 @@ def entry_prep_stack_plain(rows_list, sizes, n_used, tb: int) -> EntryPrep:
     bounds.append(torch.tensor([_SENTINEL], dtype=torch.int64, device=device))
     b = torch.cat(bounds).to(torch.int32).expand(W, -1).contiguous()
     tile_off = torch.searchsorted(rows_s, b).to(torch.int32)
-    return EntryPrep(rows_s.contiguous(), order.to(torch.int32), tile_off, dropped, sizes,
-                     n_used, tb)
+    return EntryPrep(rows_s.contiguous(), order.to(torch.int32), tile_off, dropped,
+                     tuple(int(c) for c in sizes), tuple(int(n) for n in n_used), tb, True)
 
 
 def _prep_launch(rows_list, sizes, n_used, tb) -> EntryPrep:
@@ -326,7 +336,7 @@ def _prep_launch(rows_list, sizes, n_used, tb) -> EntryPrep:
 def window_prep(pre: EntryPrep, w: int) -> EntryPrep:
     """Batch ``w``'s EntryPrep of a stack (:func:`entry_prep_stack`)."""
     return EntryPrep(pre.rows[w], pre.order[w], pre.tile_off[w], pre.dropped[w], pre.sizes,
-                     pre.n_used, pre.tb)
+                     pre.n_used, pre.tb, pre.sorted_by_row)
 
 
 def _prep_for(pre, rows_list, sizes, n_used, D, device):
@@ -377,13 +387,16 @@ def _mulhilo(a: torch.Tensor, b: int):
     return (p2 >> 16) + (s >> 32), s & _U32
 
 
-def philox_noise16(seed: int, level: int, n: int, device="cpu") -> torch.Tensor:
-    """The kernel's 16-bit stochastic-rounding noise for elements ``[0, n)``
-    of level ``level`` (row-major), as int32: Philox4x32-10 with counter
-    (group lo, group hi, level, 0) and key (seed, 0x53524E44), one call per
-    group of 8 elements, element 8 k + j taking bits 16 (j & 1) of word
-    j >> 1 (csrc/fused_adam.cu)."""
-    k = torch.arange(-(-int(n) // 8), dtype=torch.int64, device=device)
+def philox_noise16(seed: int, level: int, n: int, device="cpu", start: int = 0) -> torch.Tensor:
+    """The kernel's 16-bit stochastic-rounding noise for elements ``[start,
+    start + n)`` of level ``level`` (row-major), as int32: Philox4x32-10
+    with counter (group lo, group hi, level, 0) and key (seed, 0x53524E44),
+    one call per group of 8 elements, element 8 k + j taking bits 16 (j & 1)
+    of word j >> 1 (csrc/fused_adam.cu).  ``start`` (a multiple of 8) is a
+    row shard's first element in its whole table."""
+    if int(start) % 8:
+        raise ValueError(f"start {start} must be a multiple of 8")
+    k = torch.arange(-(-int(n) // 8), dtype=torch.int64, device=device) + int(start) // 8
     c0, c1 = k & _U32, k >> 32
     c2 = torch.full_like(k, int(level) & _U32)
     c3 = torch.zeros_like(k)
@@ -433,6 +446,19 @@ def fused_adam_multi_plain(ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
     device, D = ps[0].device, ps[0].shape[1]
     pre = _prep_for(pre, rows_list, sizes, n_used, D, device)
     gs = _sorted_grads(pre, g_list, D)
+    _adam_levels_plain(variant, ps, ms, vs, pre.rows, gs, n_used, offs, lrs, bc1, bc2, b1, b2,
+                       eps, grads_bf16, sr_seed, noise16, [0] * len(ps))
+    return pre.dropped
+
+
+def _adam_levels_plain(variant, ps, ms, vs, rows_s, gs, n_used, offs, lrs, bc1, bc2, b1, b2,
+                       eps, grads_bf16, sr_seed, noise16, row_base):
+    """The plain step over each level's head ``[0, n_used_l)``, from the
+    binned rows ``rows_s`` (global: level l's start at ``offs[l]``) and their
+    gradients ``gs`` in the same order.  ``row_base[l]``: the table's first
+    row in its level's whole table (a row shard's), which keys the
+    stochastic rounding."""
+    device, D = ps[0].device, ps[0].shape[1]
     if grads_bf16:
         gs = gs.to(torch.bfloat16).to(torch.float32)
     bc1_t, bc2_t = (torch.tensor(float(b), dtype=torch.float32, device=device)
@@ -440,9 +466,9 @@ def fused_adam_multi_plain(ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
     for l, (p, m, v, nu, off, lr_l) in enumerate(zip(ps, ms, vs, n_used, offs, lrs)):
         if nu == 0:
             continue
-        sel = (pre.rows >= off) & (pre.rows < off + nu)
+        sel = (rows_s >= off) & (rows_s < off + nu)
         gl = torch.zeros((nu, D), dtype=torch.float32, device=device).index_add_(
-            0, (pre.rows[sel] - off).to(torch.int64), gs[sel])
+            0, (rows_s[sel] - off).to(torch.int64), gs[sel])
         m_new = b1 * m[:nu].float() + (1.0 - b1) * gl
         v_new = b2 * v[:nu].float() + (1.0 - b2) * gl * gl
         # the root in float64, rounded once: the correctly rounded float32 root
@@ -453,13 +479,12 @@ def fused_adam_multi_plain(ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
             if noise16 is not None:
                 noise = noise16[l].reshape(-1)[: nu * D]
             else:
-                noise = philox_noise16(sr_seed, l, nu * D, device)
+                noise = philox_noise16(sr_seed, l, nu * D, device, start=row_base[l] * D)
             p[:nu] = sr_round_bf16_plain(p_new, noise.reshape(nu, D))
         else:
             p[:nu] = p_new
         m[:nu] = m_new  # to bf16 moments: round to nearest even
         v[:nu] = v_new
-    return pre.dropped
 
 
 def fused_adam_plain(p, m, v, rows, grads, lr, bc1, bc2, n_used=None,
@@ -501,12 +526,15 @@ def _check_aligned(named):
 
 
 def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
-            eps, grads_bf16=False, seed=0, lib=None):
+            eps, grads_bf16=False, seed=0, lib=None, row_base=None, det=False):
     """One launch of csrc/fused_adam.cu's ``variant`` (``lib``: the library
     of another copy of it with the same interface) on ``pre``'s binned
-    entries (no counting).  Returns whether a kernel ran (some used head is
-    non-empty)."""
-    fn = getattr(lib or cuda_build.load("fused_adam"), _C_ENTRY[variant])
+    entries (no counting).  ``row_base`` (a row shard's first row per
+    level) or ``det`` (the sorted, deterministic sum) take the ``_ex`` entry
+    points.  Returns whether a kernel ran (some used head is non-empty)."""
+    ex = row_base is not None or det
+    name = _C_ENTRY[variant].replace("fused_adam_", "fused_adam_ex_") if ex else _C_ENTRY[variant]
+    fn = getattr(lib or cuda_build.load("fused_adam"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 4
                        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3
@@ -514,13 +542,17 @@ def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc
                        + [ctypes.POINTER(ctypes.c_longlong)] * 2
                        + [ctypes.POINTER(ctypes.c_float)]
                        + [ctypes.c_float] * 7
-                       + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+                       + ([ctypes.POINTER(ctypes.c_longlong), ctypes.c_int] if ex else []))
         fn.restype = ctypes.c_int
     L = len(offs)
 
     def ptrs(ts):
         return (ctypes.c_void_p * L)(*[t.data_ptr() for t in ts])
 
+    extra = ()
+    if ex:
+        extra = ((ctypes.c_longlong * L)(*(row_base or [0] * L)), int(bool(det)))
     with torch.cuda.device(ps[0].device):
         stream = torch.cuda.current_stream(ps[0].device).cuda_stream
         err = fn(ptrs(ps), ptrs(ms), ptrs(vs), ptrs(gs), (ctypes.c_longlong * L)(*ent_off),
@@ -529,7 +561,7 @@ def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc
                  (ctypes.c_longlong * L)(*offs), (ctypes.c_longlong * L)(*n_used),
                  (ctypes.c_float * L)(*lrs), b1, b2, 1.0 - b1, 1.0 - b2,
                  float(bc1), float(bc2), eps, int(bool(grads_bf16)),
-                 int(seed) & 0xFFFFFFFF, stream)
+                 int(seed) & 0xFFFFFFFF, stream, *extra)
     if err != 0:
         raise RuntimeError(f"fused_adam kernel launch failed: CUDA error {err}")
     return sum(n > 0 for n in n_used) > 0
@@ -537,12 +569,19 @@ def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc
 
 @torch.no_grad()
 def _step(entry, ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
-          n_used, b1, b2, eps, grads_bf16, sr_seed, pre, noise16):
+          n_used, b1, b2, eps, grads_bf16, sr_seed, pre, noise16, deterministic=False):
     """Both entry points: checks, then the plain version for CPU tensors or
     the prep (unless ``pre`` is given) and one kernel launch for CUDA
-    tensors (counted under ``entry`` and the variant)."""
+    tensors (counted under ``entry`` and the variant).  ``deterministic``
+    sums each row's entries in the prep's order (the plain prep's, sorted
+    by row and entry; a ``pre`` that is not sorted raises)."""
     variant = _check_tables(ps, ms, vs)
     device = ps[0].device
+    if deterministic and pre is not None and not pre.sorted_by_row:
+        # the deterministic sum reads each row's entries as one run: a prep
+        # binned by atomics may split a row's entries into several
+        raise ValueError("deterministic=True needs a prep sorted by row "
+                         "(entry_prep_stack_plain), not csrc/entry_prep.cu's")
     if device.type == "cpu":
         return fused_adam_multi_plain(ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
                                       lr_scales, n_used, b1, b2, eps, grads_bf16,
@@ -559,9 +598,13 @@ def _step(entry, ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
     D = ps[0].shape[1]
     ent_off = _entry_offsets(g_list, rows_list, D, device)
     _check_aligned((("p", ps), ("m", ms), ("v", vs), ("grads", g_list)))
+    if deterministic and pre is None:
+        pre = entry_prep_stack_plain([r.reshape(1, -1) for r in rows_list], sizes, n_used,
+                                     tile_rows(D))
+        pre = window_prep(pre, 0)
     pre = _prep_for(pre, rows_list, sizes, n_used, D, device)
     if _launch(variant, ps, ms, vs, g_list, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
-               eps, grads_bf16, 0 if sr_seed is None else sr_seed):
+               eps, grads_bf16, 0 if sr_seed is None else sr_seed, det=deterministic):
         LAUNCHES[entry + _SUFFIX[variant]] += 1
     return pre.dropped
 
@@ -570,7 +613,7 @@ def fused_adam_multi(ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
                      n_used=None, b1: float = 0.9, b2: float = 0.99,
                      eps: float = 1e-15, grads_bf16: bool = False,
                      sr_seed: Optional[int] = None, pre: Optional[EntryPrep] = None,
-                     noise16=None):
+                     noise16=None, deterministic: bool = False):
     """Dense-Adam step on all levels' tables in ONE kernel launch (K2).
 
     ``ps``, ``ms``, ``vs`` are the per-level ``(C_l, D)`` tables;
@@ -583,25 +626,198 @@ def fused_adam_multi(ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
     per step (the trainer passes the iteration).  ``pre``: the
     :func:`entry_prep` of exactly these rows, sizes and heads.
     ``noise16``: see :func:`fused_adam_multi_plain` (CPU tensors only).
+    ``deterministic``: every launch on the same entries gives the same bits
+    (each row summed in entry order from a prep sorted by row: built here
+    when ``pre`` is None, else ``pre.sorted_by_row`` must hold, as for
+    :func:`entry_prep_stack_plain`'s, or it raises); the data-parallel
+    replicas use it.
     Returns the dropped-entry count."""
     return _step("fused_adam_multi", ps, ms, vs, rows_list, g_list, lr, bc1, bc2,
-                 lr_scales, n_used, b1, b2, eps, grads_bf16, sr_seed, pre, noise16)
+                 lr_scales, n_used, b1, b2, eps, grads_bf16, sr_seed, pre, noise16,
+                 deterministic)
 
 
 def fused_adam(p, m, v, rows, grads, lr, bc1, bc2, n_used: Optional[int] = None,
                b1: float = 0.9, b2: float = 0.99, eps: float = 1e-15,
-               grads_bf16: bool = False, pre: Optional[EntryPrep] = None):
+               grads_bf16: bool = False, pre: Optional[EntryPrep] = None,
+               deterministic: bool = False):
     """Dense-Adam step on one level's ``(C, D)`` table (K1).
 
     ``rows`` are corner rows (any shape), ``grads`` the matching ``(..., D)``
     float32 gradients (duplicates fine, trashbin row ``C - 1`` ignored).  p
     is float32, m and v float32 or bfloat16; bf16 tables take
     :func:`fused_adam_multi`, which carries the stochastic-rounding seed (as
-    the JAX package's ``fused_adam_packed`` refuses them).  Returns the
+    the JAX package's ``fused_adam_packed`` refuses them).
+    ``deterministic``: see :func:`fused_adam_multi`.  Returns the
     dropped-entry count."""
     if p.dtype != torch.float32:
         raise TypeError(f"fused_adam takes float32 parameters, got {p.dtype}: bf16 "
                         "tables ride fused_adam_multi with an sr_seed")
     return _step("fused_adam", [p], [m], [v], [rows], [grads], lr, bc1, bc2,
                  [1.0], None if n_used is None else [n_used], b1, b2, eps,
-                 grads_bf16, None, pre, None)
+                 grads_bf16, None, pre, None, deterministic)
+
+
+# ------------------------------------------------------------------ row shards
+
+
+def shard_geometry(shapes, n_shards: int) -> Tuple[Tuple[int, ...], int]:
+    """The row split of per-level ``(C_l, D)`` tables over ``n_shards``
+    (JAX ``shard_geometry``, adam_kernel.py:447, on the port's layout):
+    each level's table is cut into ``n_shards`` contiguous blocks of ``C_l /
+    n`` rows, rank k holding rows ``[k C_l / n, (k + 1) C_l / n)`` of every
+    level, so no block straddles a level (the JAX package cuts the levels'
+    concatenated 128-lane table into ``R_tot / n`` rows instead).  Returns
+    (rows per level of a block, rows per tile of the kernel).  Raises
+    ValueError when a level does not split evenly or a block's elements do
+    not start on a group of 8 (the kernel's stochastic-rounding groups)."""
+    n = int(n_shards)
+    Ds = {int(D) for _, D in shapes}
+    if n < 1 or len(Ds) != 1:
+        raise ValueError(f"{n} shards of tables {list(shapes)}: one feature dim and n >= 1")
+    D = Ds.pop()
+    for C, _ in shapes:
+        if int(C) % n or (int(C) // n * D) % 8:
+            raise ValueError(f"a level of {C} rows of {D} does not split into {n} blocks "
+                             "starting on groups of 8 elements")
+    return tuple(int(C) // n for C, _ in shapes), tile_rows(D)
+
+
+def shardable(shapes, n_shards: int) -> bool:
+    """Can these tables row-shard evenly over ``n_shards`` (JAX
+    ``shardable``, adam_kernel.py:494)?"""
+    try:
+        shard_geometry(shapes, n_shards)
+        return True
+    except ValueError:
+        return False
+
+
+def shard_row_base(shapes, n_shards: int, rank: int) -> List[int]:
+    """Rank ``rank``'s first row of each level's whole table."""
+    return [int(rank) * (int(C) // int(n_shards)) for C, _ in shapes]
+
+
+def entry_prep_local(rows_loc: torch.Tensor, sizes_loc: Sequence[int], dim: int) -> EntryPrep:
+    """The :class:`EntryPrep` of a row shard's entries (JAX
+    ``entry_prep_local``, adam_kernel.py:503): ``rows_loc`` (..., M) holds
+    each entry's row in the shard's blocks concatenated (level l's block
+    starts at ``sum(sizes_loc[:l])``), -1 for a pad slot.  Every row of
+    every block is covered by a tile (no used head).  A stable sort on any
+    device, so each tile's entries come sorted by row and entry;
+    ``order`` indexes the ``M``
+    entries as given.  Leading dims stack batches (:func:`window_prep` takes
+    one).  Raises ValueError on a row past the blocks."""
+    sizes = tuple(int(c) for c in sizes_loc)
+    total = sum(sizes)
+    if total >= _SENTINEL:
+        raise ValueError("shards of 2**31 - 1 rows or more are not supported")
+    r = rows_loc.to(torch.int64)
+    if r.numel() and int(r.max()) >= total:
+        raise ValueError(f"a row {int(r.max())} lies past the shard's {total} rows")
+    lead = r.shape[:-1]
+    r = r.reshape(-1, r.shape[-1])
+    tb = tile_rows(dim)
+    rows_s, order = torch.sort(torch.where(r >= 0, r, _SENTINEL).to(torch.int32), dim=1,
+                               stable=True)
+    bounds, off = [], 0
+    for C in sizes:
+        bounds.append(torch.arange(0, C, tb, dtype=torch.int64, device=r.device) + off)
+        off += C
+    bounds.append(torch.tensor([_SENTINEL], dtype=torch.int64, device=r.device))
+    b = torch.cat(bounds).to(torch.int32).expand(r.shape[0], -1).contiguous()
+    tile_off = torch.searchsorted(rows_s, b).to(torch.int32)
+    dropped = torch.zeros(r.shape[0], dtype=torch.int64, device=r.device)
+    T1 = tile_off.shape[1]
+    return EntryPrep(rows_s.reshape(*lead, -1).contiguous(),
+                     order.to(torch.int32).reshape(*lead, -1), tile_off.reshape(*lead, T1),
+                     dropped.reshape(lead), sizes, sizes, tb, True)
+
+
+def _shard_args(ps, ms, vs, rows_loc, g_loc, lr, lr_scales, row_base, pre):
+    variant = _check_tables(ps, ms, vs)
+    sizes, n_used, offs, lrs = _levels(ps, None, lr, lr_scales)
+    D = int(ps[0].shape[1])
+    if len(row_base) != len(ps) or any(int(b) * D % 8 for b in row_base):
+        raise ValueError(f"row_base {list(row_base)}: one first row per level, on a group "
+                         "of 8 elements")
+    if g_loc.dtype != torch.float32 or g_loc.dim() != 2 or g_loc.shape[1] != D:
+        raise ValueError(f"g_loc must be float32 (M, {D})")
+    if rows_loc is None and pre is None:
+        raise ValueError("pass the entries' rows_loc or their prep")
+    if rows_loc is not None and rows_loc.reshape(-1).shape[0] != g_loc.shape[0]:
+        raise ValueError(f"{rows_loc.numel()} rows but {g_loc.shape[0]} gradient rows")
+    if pre is None:
+        pre = entry_prep_local(rows_loc.reshape(-1), sizes, D)
+    elif (pre.sizes != tuple(sizes) or pre.n_used != tuple(sizes) or pre.tb != tile_rows(D)
+          or pre.rows.shape != (g_loc.shape[0],)):
+        raise ValueError(f"pre was built for blocks {pre.sizes} and {tuple(pre.rows.shape)} "
+                         f"entries; this step has {tuple(sizes)}, {g_loc.shape[0]}")
+    return variant, sizes, offs, lrs, pre
+
+
+@torch.no_grad()
+def fused_adam_shard_plain(ps_loc, ms_loc, vs_loc, rows_loc, g_loc, lr, bc1, bc2, lr_scales,
+                           row_base, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-15,
+                           grads_bf16: bool = False, sr_seed: Optional[int] = None,
+                           pre: Optional[EntryPrep] = None):
+    """The plain torch version of :func:`fused_adam_shard` (any device):
+    ``index_add_`` of the entries into each block and the dense-Adam step
+    over the whole block, as :func:`fused_adam_multi_plain`; bf16 p rounds
+    with the kernel's bits for the block's place in the whole table."""
+    variant, sizes, offs, lrs, pre = _shard_args(ps_loc, ms_loc, vs_loc, rows_loc, g_loc, lr,
+                                                 lr_scales, row_base, pre)
+    if variant == "bf16p" and sr_seed is None:
+        raise ValueError("bf16 tables need a per-step sr_seed")
+    gs = g_loc.index_select(0, pre.order)
+    _adam_levels_plain(variant, ps_loc, ms_loc, vs_loc, pre.rows, gs, sizes, offs, lrs, bc1,
+                       bc2, b1, b2, eps, grads_bf16, sr_seed, None,
+                       [int(b) for b in row_base])
+
+
+@torch.no_grad()
+def fused_adam_shard(ps_loc, ms_loc, vs_loc, rows_loc, g_loc, lr, bc1, bc2, lr_scales,
+                     row_base, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-15,
+                     grads_bf16: bool = False, sr_seed: Optional[int] = None,
+                     pre: Optional[EntryPrep] = None):
+    """Dense-Adam step over ONE row shard of the feature tables in one
+    kernel launch: K2's row-sharded caller (JAX ``fused_adam_packed_shard``,
+    adam_kernel.py:528, the per-device body of the routed row-sharded
+    window update).
+
+    ``ps_loc``, ``ms_loc``, ``vs_loc``: this shard's block of each level's
+    table (:func:`shard_geometry`), ``row_base[l]`` the block's first row
+    in level l's whole table (:func:`shard_row_base`).  ``g_loc`` (M, D)
+    float32: the entries routed to this shard, in any order; ``rows_loc``
+    (M,) their rows in the blocks concatenated, -1 for a pad slot (its
+    gradient is never read), or None when ``pre`` is given.  ``pre``: :func:`entry_prep_local` of
+    ``rows_loc`` (built here when None).  Every row of every block takes
+    one step: rows no entry reached decay, and the headroom (zero moments,
+    no entries) takes an exact no-op.  Each row's entries all live on one
+    shard and its step is that of the unsharded K2, so the n shards' blocks
+    concatenated equal one unsharded step (bf16 p too: the stochastic
+    rounding is keyed by the element's place in the whole table).  On CPU
+    tensors :func:`fused_adam_shard_plain`; on CUDA tensors one launch of
+    csrc/fused_adam.cu (counted under ``fused_adam_multi_shard`` and the
+    variant) or an error.  Each row lies on one shard, so no replica
+    needs the deterministic sum: the launch takes the atomics."""
+    device = ps_loc[0].device
+    if device.type == "cpu":
+        return fused_adam_shard_plain(ps_loc, ms_loc, vs_loc, rows_loc, g_loc, lr, bc1, bc2,
+                                      lr_scales, row_base, b1, b2, eps, grads_bf16, sr_seed,
+                                      pre)
+    if device.type != "cuda":
+        raise ValueError(f"fused_adam_shard runs on cuda (or cpu), not {device}")
+    variant, sizes, offs, lrs, pre = _shard_args(ps_loc, ms_loc, vs_loc, rows_loc, g_loc, lr,
+                                                 lr_scales, row_base, pre)
+    if variant == "bf16p" and sr_seed is None:
+        raise ValueError("bf16 tables need a per-step sr_seed")
+    if g_loc.device != device or pre.rows.device != device or not g_loc.is_contiguous():
+        raise ValueError("entries must be contiguous and lie on the tables' device")
+    L = len(ps_loc)
+    _check_aligned((("p", ps_loc), ("m", ms_loc), ("v", vs_loc), ("grads", [g_loc])))
+    # one gradient buffer for all levels: the prep's order indexes it directly
+    if _launch(variant, ps_loc, ms_loc, vs_loc, [g_loc] * L, [0] * L, pre, sizes, offs, lrs,
+               b1, b2, bc1, bc2, eps, grads_bf16, 0 if sr_seed is None else sr_seed,
+               row_base=[int(b) for b in row_base]):
+        LAUNCHES["fused_adam_multi_shard" + _SUFFIX[variant]] += 1

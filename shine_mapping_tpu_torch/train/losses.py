@@ -48,9 +48,11 @@ def sdf_diff_loss(
     weight: torch.Tensor,
     scale: float,
     l2_loss: bool = True,
+    count=None,
 ) -> torch.Tensor:
-    """Weighted L1/L2 sdf regression in metres — utils/loss.py:6-14."""
-    count = pred.shape[0]
+    """Weighted L1/L2 sdf regression in metres — utils/loss.py:6-14.
+    ``count``: the batch's size when this is a rank's share of it."""
+    count = pred.shape[0] if count is None else count
     diff_m = (pred - label) / scale
     if l2_loss:
         return torch.sum(weight * diff_m ** 2) / count
@@ -58,7 +60,8 @@ def sdf_diff_loss(
 
 
 def batch_ray_rendering_loss(
-    x: torch.Tensor, y: torch.Tensor, d_meas: torch.Tensor, neus_on: bool = True
+    x: torch.Tensor, y: torch.Tensor, d_meas: torch.Tensor, neus_on: bool = True,
+    count=None,
 ) -> torch.Tensor:
     """Volume-rendered depth vs measured depth — utils/loss.py:82-118.
 
@@ -68,7 +71,8 @@ def batch_ray_rendering_loss(
     gather, so the gradient reaches ``y`` through the permutation.  As in
     the JAX package the transmittance is the exclusive cumprod of
     1 - alpha, which has no divide by 1 - alpha and no NaN gradient when
-    alpha saturates at 1 (the reference's cumprod(1-a)/(1-a) has both)."""
+    alpha saturates at 1 (the reference's cumprod(1-a)/(1-a) has both).
+    ``count``: the batch's rays when these are a rank's share of them."""
     order = torch.argsort(x, dim=1, stable=True)
     sort_x = torch.gather(x, 1, order)
     sort_y = torch.gather(y, 1, order)
@@ -86,6 +90,8 @@ def batch_ray_rendering_loss(
     exclusive = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
     weights = exclusive * alpha
     d_render = torch.sum(weights * sort_x[:, : alpha.shape[1]], dim=1)
+    if count is not None:
+        return torch.sum(torch.abs(d_render - d_meas)) / count
     return torch.mean(torch.abs(d_render - d_meas))
 
 
@@ -104,35 +110,49 @@ def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Te
     return torch.where(pos, safe, torch.zeros_like(sq))
 
 
-def eikonal_loss(grads: torch.Tensor, surface_mask: torch.Tensor) -> torch.Tensor:
+def eikonal_loss(grads: torch.Tensor, surface_mask: torch.Tensor, count=None) -> torch.Tensor:
     """Mean (1 - |grad|)^2 over surface samples — shine_batch.py:183-185.
 
-    The mask weights the mean (static shapes, as in the JAX package)."""
+    The mask weights the mean (static shapes, as in the JAX package).
+    ``count``: the batch's surface samples when these are a rank's share."""
     norms = safe_norm(grads, dim=-1)
     per = (1.0 - norms) ** 2
     m = surface_mask.to(per.dtype)
-    return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(per * m) / _masked_count(m, count)
+
+
+def _masked_count(m: torch.Tensor, count) -> torch.Tensor:
+    n = torch.sum(m) if count is None else torch.as_tensor(count, dtype=m.dtype,
+                                                           device=m.device)
+    return torch.clamp(n, min=1.0)
 
 
 def normal_loss(grads: torch.Tensor, normal_label: torch.Tensor,
-                surface_mask: torch.Tensor) -> torch.Tensor:
-    """Gradient direction vs measured normal, L2 — shine_batch.py:192-197."""
+                surface_mask: torch.Tensor, count=None) -> torch.Tensor:
+    """Gradient direction vs measured normal, L2 — shine_batch.py:192-197.
+    ``count``: as :func:`eikonal_loss`'s."""
     g_dir = grads / (safe_norm(grads, dim=-1, keepdim=True) + 1e-12)
     per = safe_norm(torch.abs(g_dir - normal_label), dim=1)
     m = surface_mask.to(per.dtype)
-    return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(per * m) / _masked_count(m, count)
 
 
-def consistency_loss(g_a: torch.Tensor, g_b: torch.Tensor) -> torch.Tensor:
+def consistency_loss(g_a: torch.Tensor, g_b: torch.Tensor, count=None) -> torch.Tensor:
     """1 - cosine similarity between the gradients of nearby points
-    (shine_batch.py:187-190)."""
+    (shine_batch.py:187-190).  ``count``: the batch's near points when
+    these are a rank's share."""
     na = safe_norm(g_a, dim=-1) + 1e-12
     nb = safe_norm(g_b, dim=-1) + 1e-12
     cos = torch.sum(g_a * g_b, dim=-1) / (na * nb)
+    if count is not None:
+        return torch.sum(1.0 - cos) / count
     return torch.mean(1.0 - cos)
 
 
-def sem_nll_loss(log_prob: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-    """NLL of log-softmax semantic predictions — shine_batch.py:200-204."""
+def sem_nll_loss(log_prob: torch.Tensor, label: torch.Tensor, count=None) -> torch.Tensor:
+    """NLL of log-softmax semantic predictions — shine_batch.py:200-204.
+    ``count``: the batch's labels when these are a rank's share."""
     picked = torch.gather(log_prob, 1, label[:, None].long())
+    if count is not None:
+        return -torch.sum(picked) / count
     return -torch.mean(picked)

@@ -53,6 +53,13 @@ rounding of the entries), so the entry count stays ``bs * 8`` per level.
 Fused windows precompute the owner flags (``reg_cover``); iid batches
 compute them per step.  ``freeze_decoder`` zeroes the decoders' lr while
 their Adam state still advances (trainer.py:927-932).
+
+Several ranks (``train_chunk(..., group=)``, one process a card; JAX's
+``batch_sharding``): each rank trains its slice of the global batch and
+the tables are updated either on every rank from all ranks' gathered
+entries (replicated tables) or, on routed windows, by each rank over its
+row blocks through K2's row-sharded caller (``row-sharded`` tables;
+:class:`RoutedWindows`, :func:`shard_windows_ok`).
 """
 
 from __future__ import annotations
@@ -321,6 +328,54 @@ def precompute_pool_lookups(tables: Sequence[LevelTable], pool_coord: torch.Tens
 
 
 @dataclasses.dataclass
+class RoutedWindows:
+    """Per-window entry routing of the row-sharded update (JAX
+    ``_route_shard_windows``, trainer.py:1928-2075, on the port's layout).
+
+    With ``n`` ranks, rank s trains samples ``[s bs / n, (s + 1) bs / n)``
+    of each window; its local entries are ordered (level, sample, corner),
+    ``M_loc = L bs / n 8`` of them.  An entry's row lies in rank d's block
+    (``adam_kernel.shard_geometry``).  Only found corners route (a miss's
+    weight is zero, its row the zero row, its gradient zero).  Each
+    (sample rank s, row rank d, level l) cell holds at most ``E`` entries in
+    entry order; pads fill the rest.  Per window:
+
+    * ``serve`` (n_d, n_s, L, E) int32: the block rows rank d gathers for
+      rank s's entries (-1 = pad); one all-to-all takes them to the samples;
+    * ``recv_inv`` (n_s, M_loc) int32: where rank s finds entry i in its
+      received (n_d, L, E) rows (``n L E`` = an appended zero row);
+    * ``owner_sel`` (n_s, n_d, L, E) int32: the local entries whose
+      gradients rank s sends to rank d (``M_loc`` = an appended zero row);
+    * ``pre``: rank d's :func:`~..ops.adam_kernel.entry_prep_local` over the
+      (n_s, L, E) gradients it receives (their rows: ``serve`` in the
+      blocks concatenated).
+
+    Routed for one rank (``rank`` set: ``precompute_batch_windows(...,
+    rank=)`` or ``local_part(rank)``), the arrays lose their rank axis.
+    ``sizes``: the whole tables' rows per level."""
+
+    serve: torch.Tensor
+    recv_inv: torch.Tensor
+    owner_sel: torch.Tensor
+    pre: EntryPrep
+    n: int
+    E: int
+    sizes: Tuple[int, ...]
+    rank: Optional[int] = None
+
+    def local_part(self, rank: int) -> "RoutedWindows":
+        if self.rank is not None:
+            raise ValueError("these routed windows are already one rank's")
+        p = self.pre
+        pre = EntryPrep(p.rows[:, rank].contiguous(), p.order[:, rank].contiguous(),
+                        p.tile_off[:, rank].contiguous(), p.dropped[:, rank].contiguous(),
+                        p.sizes, p.n_used, p.tb, p.sorted_by_row)
+        return RoutedWindows(self.serve[:, rank].contiguous(), self.recv_inv[:, rank].contiguous(),
+                             self.owner_sel[:, rank].contiguous(), pre, self.n, self.E,
+                             self.sizes, rank)
+
+
+@dataclasses.dataclass
 class BatchWindows:
     """Epoch windows with the update's row prep (:func:`precompute_batch_windows`).
 
@@ -336,6 +391,10 @@ class BatchWindows:
     # continual-learning reg: per level, (W, bs, 8) bool owner flags
     # (:func:`owner_flags` of each window), or None
     owner: Optional[List[torch.Tensor]] = None
+    # the preps are the plain, sorted ones (the replicas' deterministic sum)
+    deterministic: bool = False
+    # row-sharded routing (shards=n; no global preps then)
+    route: Optional[RoutedWindows] = None
 
     @property
     def n_windows(self) -> int:
@@ -348,12 +407,134 @@ class BatchWindows:
                 sum((p.n_used for p in self.preps), ()))
 
 
+def shard_windows_ok(settings: TrainSettings, feat_shapes, n_shards: int) -> bool:
+    """Can fused epoch windows route a row-sharded update over ``n_shards``
+    ranks (JAX ``shard_windows_ok``, trainer.py:194)?  Two or more shards
+    that split the batch and every level's table evenly
+    (``adam_kernel.shardable``), and the fused windows' own conditions.
+    Unlike the JAX package, any shard count that divides evenly will do
+    (its power of two sized the split-K prefix)."""
+    n = int(n_shards)
+    return (n >= 2 and settings.bs % n == 0 and adam_kernel.shardable(feat_shapes, n)
+            and batch_windows_ok(settings, feat_shapes, True))
+
+
+def _route_cells(rows, found, sizes, n: int):
+    """Per entry of W windows ((level, sample, corner) order): its cell
+    ``(sample rank, row rank, level)`` (``n n L`` for a miss, which does not
+    route), its local index on its sample's rank and its row in its row
+    rank's block."""
+    W, bs = int(rows[0].shape[0]), int(rows[0].shape[1])
+    L = len(sizes)
+    b = bs // n
+    dev = rows[0].device
+    samp = torch.arange(bs, device=dev).repeat_interleave(8).repeat(L)  # (L bs 8,)
+    lvl = torch.arange(L, device=dev).repeat_interleave(bs * 8)
+    owner = samp // b
+    local = lvl * (b * 8) + (samp % b) * 8 + torch.arange(8, device=dev).repeat(L * bs)
+    r = torch.cat([rows[l].reshape(W, -1).to(torch.int64) for l in range(L)], dim=1)
+    real = torch.cat([found[l].reshape(W, bs, 1).expand(W, bs, 8).reshape(W, -1)
+                      for l in range(L)], dim=1)
+    cl = torch.tensor([C // n for C in sizes], device=dev)[lvl]  # each entry's block rows
+    dest = r // cl
+    cell = torch.where(real, (owner * n + dest) * L + lvl, n * n * L)
+    return cell, local, r - dest * cl
+
+
+@torch.no_grad()
+def _route_windows(rows, found, sizes, D: int, n: int, rank: Optional[int] = None,
+                   chunk: int = 1 << 22) -> RoutedWindows:
+    """:class:`RoutedWindows` of W windows: ``rows[l]`` (W, bs, 8) level
+    l's corner rows of each window's samples, ``found[l]`` (W, bs).  With
+    ``rank``, only that rank's part (the rows it serves, its shard prep, its
+    sends and its receive map), so a rank builds and holds 1/n of the
+    routing; else every rank's.  Runs ``chunk`` entries' worth of windows at
+    a time (two passes: the largest cell of any rank sets E, then the
+    routing), so the temporaries stay ~20 bytes an entry of a chunk whatever
+    the pool."""
+    W, bs = int(rows[0].shape[0]), int(rows[0].shape[1])
+    L = len(sizes)
+    b = bs // n
+    M_loc, n_cells = L * b * 8, n * n * L
+    wc = max(1, chunk // (L * bs * 8))
+    spans = [(w0, min(w0 + wc, W)) for w0 in range(0, W, wc)]
+
+    def part(w0, w1):
+        return ([r[w0:w1] for r in rows], [f[w0:w1] for f in found])
+
+    cmax = 0
+    for w0, w1 in spans:
+        cell = _route_cells(*part(w0, w1), sizes, n)[0]
+        cnt = torch.zeros((w1 - w0, n_cells + 1), dtype=torch.int64, device=cell.device)
+        cnt.scatter_add_(1, cell, torch.ones_like(cell))
+        cmax = max(cmax, int(cnt[:, :n_cells].max()))
+    E = max(8, -(-cmax // 8) * 8)  # at most 8 bs / n: a sample rank's entries of a level
+    nle = n * L * E
+    off = torch.tensor([sum(C // n for C in sizes[:l]) for l in range(L)],
+                       device=rows[0].device).reshape(1, 1, L, 1)
+    ranks = range(n) if rank is None else [int(rank)]
+    out = {}  # each array whole, filled chunk by chunk (no second copy to concatenate)
+
+    def put(name, w0, t):
+        if name not in out:
+            out[name] = torch.empty((W,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        out[name][w0:w0 + t.shape[0]] = t
+
+    fields = ("rows", "order", "tile_off", "dropped")
+    for w0, w1 in spans:
+        cell, local, lrow = _route_cells(*part(w0, w1), sizes, n)
+        Wc, dev = w1 - w0, cell.device
+        cs, perm = torch.sort(cell, dim=1, stable=True)
+        rank_in = torch.arange(cs.shape[1], device=dev) - torch.searchsorted(cs, cs)
+        valid = cs < n_cells
+        src = torch.div(cs, n * L, rounding_mode="floor")  # the sample rank
+        dst = torch.div(cs, L, rounding_mode="floor") % n  # the row rank
+        lvl = cs % L
+        loc_s, row_s = local[perm], torch.gather(lrow, 1, perm)
+        del cell, local, lrow, cs, perm
+        part_r = {k: [] for k in ("serve", "recv_inv", "owner_sel", "pre")}
+        for r in ranks:
+            # rank r as the row rank: the block rows it serves each sample
+            # rank, (n_s, L, E), and its shard prep over the gradients back
+            to_r = valid & (dst == r)
+            slot = torch.where(to_r, (src * L + lvl) * E + rank_in, nle)
+            serve = torch.full((Wc, nle + 1), -1, dtype=torch.int64, device=dev)
+            serve = serve.scatter_(1, slot, row_s)[:, :-1].reshape(Wc, n, L, E)
+            rows_recv = torch.where(serve >= 0, serve + off, -1).reshape(Wc, nle)
+            part_r["pre"].append(adam_kernel.entry_prep_local(rows_recv, [C // n for C in sizes],
+                                                              D))
+            part_r["serve"].append(serve.to(torch.int32))
+            # rank r as the sample rank: the local entries it sends each row
+            # rank, (n_d, L, E), and where it finds each entry's received row
+            from_r = valid & (src == r)
+            slot = torch.where(from_r, (dst * L + lvl) * E + rank_in, nle)
+            sel = torch.full((Wc, nle + 1), M_loc, dtype=torch.int64, device=dev)
+            part_r["owner_sel"].append(sel.scatter_(1, slot, loc_s)[:, :-1]
+                                       .reshape(Wc, n, L, E).to(torch.int32))
+            ri = torch.full((Wc, M_loc + 1), nle, dtype=torch.int64, device=dev)
+            part_r["recv_inv"].append(ri.scatter_(1, torch.where(from_r, loc_s, M_loc), slot)
+                                      [:, :-1].to(torch.int32))
+            del to_r, from_r, slot, serve, rows_recv, sel, ri
+        for k in ("serve", "recv_inv", "owner_sel"):  # a rank axis after the window's
+            put(k, w0, torch.stack(part_r[k], 1) if rank is None else part_r[k][0])
+        for f in fields:
+            ts = [getattr(p, f) for p in part_r["pre"]]
+            put(f, w0, torch.stack(ts, 1) if rank is None else ts[0])
+        prep_meta = part_r["pre"][0][4:]
+        del src, dst, lvl, valid, rank_in, loc_s, row_s, part_r
+    pre = EntryPrep(*(out[f] for f in fields), *prep_meta)
+    return RoutedWindows(out["serve"], out["recv_inv"], out["owner_sel"], pre, n, E,
+                         tuple(sizes), rank)
+
+
 @torch.no_grad()
 def precompute_batch_windows(pre_lookups, n_valid: int,
                              generator: Optional[torch.Generator],
                              settings: TrainSettings, feat_shapes, fused: bool = True,
                              window_indices: Optional[torch.Tensor] = None,
-                             reg_cover: bool = False) -> BatchWindows:
+                             reg_cover: bool = False, shards: int = 0,
+                             rank: Optional[int] = None,
+                             deterministic: bool = False) -> BatchWindows:
     """Epoch-style batch windows, with the update's row prep computed once
     per window (JAX ``precompute_batch_windows``, trainer.py:1751, whose
     window membership ``precompute_batch_windows_fused`` shares).
@@ -371,6 +552,16 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
     trainer.py:2250-2298, which pack a slot bit per lane and overflow an
     int32 below feature_dim 4; a flag per entry has no width to overflow).
     ``train_chunk`` needs them under ``continual_reg_on``.
+
+    ``shards`` (n >= 2, fused only): route the windows for a row-sharded
+    update over n ranks (:class:`RoutedWindows`, the JAX package's
+    ``shards`` branches, trainer.py:2081-2395) instead of one global prep;
+    ``feat_shapes`` are the whole tables'.  ``rank`` routes only that
+    rank's part (1/n of the routing's work and bytes; what a training rank
+    passes), else every rank's, of which ``parallel.mesh.
+    place_routed_windows`` keeps one.  ``deterministic``
+    builds the preps with the plain, sorted prep on any device (what the
+    kernel's deterministic sum needs: the data-parallel replicas).
 
     ``fused`` picks the layout (``tpu.windows_fused``): one
     ``fused_adam_multi`` launch per step over all levels, with one
@@ -410,10 +601,22 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
         idx = torch.sort(idx, dim=1).values
     rows = [pre_lookups[i][0][idx] for i in range(len(sizes))]  # (W, bs, 8)
     D = int(feat_shapes[0][1])
+    if shards:
+        if not (fused and shard_windows_ok(s, feat_shapes, shards)):
+            raise ValueError(f"routed windows need the fused layout and tables and a batch "
+                             f"that split evenly over {shards} shards (shard_windows_ok)")
+        if reg_cover:
+            raise ValueError("continual_reg_on is not supported with routed windows (as in "
+                             "the JAX package): use replicated tables")
+        found = [pre_lookups[i][1][idx] for i in range(len(sizes))]
+        route = _route_windows(rows, found, sizes, D, int(shards), rank)
+        return BatchWindows(idx=idx, fused=True, preps=[], route=route)
+    stack = ((lambda r, c, nu, d: adam_kernel.entry_prep_stack_plain(
+        r, c, nu, adam_kernel.tile_rows(d))) if deterministic else adam_kernel.entry_prep_stack)
     if fused:
-        preps = [adam_kernel.entry_prep_stack(rows, sizes, n_used, D)]
+        preps = [stack(rows, sizes, n_used, D)]
     else:
-        preps = [adam_kernel.entry_prep_stack([r], [C], [nu], int(sh[1]))
+        preps = [stack([r], [C], [nu], int(sh[1]))
                  for r, C, nu, sh in zip(rows, sizes, n_used, feat_shapes)]
     dropped = sum(p.dropped for p in preps)
     bad = torch.nonzero(dropped).reshape(-1)
@@ -425,11 +628,12 @@ def precompute_batch_windows(pre_lookups, n_valid: int,
     owner = None
     if reg_cover:
         owner = [owner_flags(rows[i], pre_lookups[i][1][idx]) for i in range(len(sizes))]
-    return BatchWindows(idx=idx, fused=fused, preps=preps, owner=owner)
+    return BatchWindows(idx=idx, fused=fused, preps=preps, owner=owner,
+                        deterministic=deterministic)
 
 
 def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes,
-                           reg_cover: bool = False) -> int:
+                           reg_cover: bool = False, shards: int = 0) -> int:
     """Device bytes :func:`precompute_batch_windows` holds for a run (JAX
     ``estimate_windows_bytes``, trainer.py:1807, on the port's layout): per
     window the int64 indices and, per entry (bs x 8 corners x L levels),
@@ -437,13 +641,26 @@ def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes,
     flag), plus per prep an int64 dropped count and an int32 offset per
     tile of the update kernel and one more (``feat_shapes``: the tables'
     (C_l, D)).  Counted for the per-level layout, whose L preps hold L - 1
-    tile offsets more than the fused one."""
+    tile offsets more than the fused one.  ``shards``: one rank's share of
+    routed windows over that many ranks."""
     s = settings
     W = max(-(int(n_valid) // -s.bs), 1)
     L = len(s.levels)
     sizes = [int(C) for C, _ in feat_shapes]
     n_used = list(s.n_used) if s.n_used is not None else sizes
     tiles = sum(-(-nu // adam_kernel.tile_rows(D)) for nu, (_, D) in zip(n_used, feat_shapes))
+    if shards:
+        # one rank's routed windows: the indices, and per (other rank,
+        # level) cell of E slots the served row, the send selection and the
+        # shard prep's row and order, the receive map per local entry, the
+        # shard's tile offsets (JAX places them at 1/n a chip,
+        # parallel/mesh.py:111-145).  E at its most, 8 bs / n: under the
+        # contiguous row split one row rank may take all of a level's entries
+        n = int(shards)
+        E = 8 * (s.bs // n)
+        tiles_loc = sum(-(-(C // n) // adam_kernel.tile_rows(D)) for C, D in feat_shapes)
+        return W * (8 * s.bs + 4 * 4 * n * L * E + 4 * L * (s.bs // n) * 8
+                    + 4 * (tiles_loc + 1) + 8)
     per_entry = 8 + (1 if reg_cover else 0)
     return W * (8 * s.bs + per_entry * s.bs * 8 * L + 8 * L + 4 * (tiles + L))
 
@@ -524,7 +741,8 @@ def _need_point_grad(s: TrainSettings) -> bool:
             or s.consistency_loss_on)
 
 
-def _compute_loss_sparse(params, G_list, batch, found, s: TrainSettings, near=None):
+def _compute_loss_sparse(params, G_list, batch, found, s: TrainSettings, near=None,
+                         counts=None):
     """Loss with the feature tables factored out as gathered rows ``G_list``
     (JAX ``_compute_loss_sparse``, trainer.py:508, and ``_compute_loss``,
     :296, whose terms it shares).
@@ -536,7 +754,12 @@ def _compute_loss_sparse(params, G_list, batch, found, s: TrainSettings, near=No
     samples), ``coords``, ``found`` and their rows ``G``, whose gradients
     scatter like the batch's.  Every term, the point gradients' included, is
     differentiated w.r.t. the parameters, as JAX's autodiff does (the
-    projective correction's cosine included).  Returns (total, aux)."""
+    projective correction's cosine included).  ``counts`` (a rank's share
+    of a data-parallel batch): each term's global denominator (``n``
+    samples, ``n_rays``, ``n_surf`` surface samples, ``n_near`` near
+    points, ``n_sem`` labels), so the ranks' terms sum to the whole batch's.
+    Returns (total, aux)."""
+    c = counts or {}
     geo: Decoder = params["geo"]
     weight = batch["weight"]
     surface_mask = weight > 0
@@ -574,22 +797,27 @@ def _compute_loss_sparse(params, G_list, batch, found, s: TrainSettings, near=No
         pred_ray = pred_occ.reshape(-1, s.ray_sample_count)
         depth_ray = batch["sample_depth"].reshape(-1, s.ray_sample_count)
         sdf_loss = losses.batch_ray_rendering_loss(
-            depth_ray, pred_ray, batch["ray_depth"], neus_on=(s.main_loss_type == "dr_neus"))
+            depth_ray, pred_ray, batch["ray_depth"], neus_on=(s.main_loss_type == "dr_neus"),
+            count=c.get("n_rays"))
     else:
         w = torch.abs(weight)
         if s.main_loss_type == "sdf_bce":
-            sdf_loss = losses.sdf_bce_loss(
-                pred, target, s.sigma_sigmoid, w, s.loss_weight_on, s.loss_reduction)
+            if counts is not None and s.loss_reduction == "mean":
+                sdf_loss = losses.sdf_bce_loss(
+                    pred, target, s.sigma_sigmoid, w, s.loss_weight_on, "sum") / c["n"]
+            else:
+                sdf_loss = losses.sdf_bce_loss(
+                    pred, target, s.sigma_sigmoid, w, s.loss_weight_on, s.loss_reduction)
         elif s.main_loss_type == "sdf_l1":
-            sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, False)
+            sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, False, c.get("n"))
         elif s.main_loss_type == "sdf_l2":
-            sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, True)
+            sdf_loss = losses.sdf_diff_loss(pred, target, w, s.scale, True, c.get("n"))
         else:
             raise ValueError(f"unknown main_loss_type {s.main_loss_type}")
     total = sdf_loss
     aux["sdf_loss"] = sdf_loss
     if s.ekional_loss_on:
-        ek = losses.eikonal_loss(g, surface_mask)
+        ek = losses.eikonal_loss(g, surface_mask, c.get("n_surf"))
         total = total + s.weight_e * ek
         aux["eikonal_loss"] = ek
     if s.consistency_loss_on:
@@ -599,17 +827,17 @@ def _compute_loss_sparse(params, G_list, batch, found, s: TrainSettings, near=No
         fn = feat_from_rows(cn, near["G"], near["found"], s.levels, s.poly_int_on)
         ts_n = batch["ts"][near["idx"]] if s.time_conditioned else None
         (gn,) = torch.autograd.grad(pred_of(fn, ts_n).sum(), cn, create_graph=True)
-        cons = losses.consistency_loss(g[near["idx"]], gn * s.sigma_sigmoid)
+        cons = losses.consistency_loss(g[near["idx"]], gn * s.sigma_sigmoid, c.get("n_near"))
         total = total + s.weight_c * cons
         aux["consistency_loss"] = cons
     if s.normal_loss_on:
-        nl = losses.normal_loss(g, batch["normal_label"], surface_mask)
+        nl = losses.normal_loss(g, batch["normal_label"], surface_mask, c.get("n_surf"))
         total = total + s.weight_n * nl
         aux["normal_loss"] = nl
     if s.semantic_on:
         sem_pred = params["sem"].sem_label_prob(feat)
         d = s.sem_label_decimation
-        sl = losses.sem_nll_loss(sem_pred[::d], batch["sem_label"][::d])
+        sl = losses.sem_nll_loss(sem_pred[::d], batch["sem_label"][::d], c.get("n_sem"))
         total = total + s.weight_s * sl
         aux["sem_loss"] = sl
     aux["total_loss"] = total
@@ -661,17 +889,50 @@ def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, 
     return {k: a.detach() for k, a in aux.items()}
 
 
-def _check_supported(s: TrainSettings, batch_sharding) -> None:
+def _check_supported(s: TrainSettings, mode: str, group, batch_windows) -> bool:
     """Raise NotImplementedError, naming the ROADMAP item, for what the port
-    does not run yet."""
-    if batch_sharding is not None:
-        raise NotImplementedError("not ported yet, see ROADMAP.md: multi-GPU batch "
-                                  "sharding (Queue A item 14)")
+    does not run yet, and ValueError for what the JAX package refuses too.
+    Returns whether the chunk runs over several ranks."""
+    if group is None or group.world == 1:
+        if batch_windows is not None and batch_windows.route is not None:
+            raise ValueError("routed windows need the group of ranks they were routed for")
+        return False
+    routed = batch_windows is not None and batch_windows.route is not None
+    if group.table_sharding == "rows" and not routed:
+        raise NotImplementedError(
+            "not ported yet, see ROADMAP.md: row-sharded tables without routed windows "
+            "(Queue A item 14b); precompute the fused windows with shards=world")
+    if group.table_sharding != "rows" and routed:
+        raise ValueError("routed windows update row-sharded tables: place the training "
+                         "state with table_sharding 'rows'")
+    if routed:
+        rt = batch_windows.route
+        if rt.rank != group.rank or rt.n != group.world:
+            raise ValueError(f"routed windows of rank {rt.rank} of {rt.n}, not {group.rank} of "
+                             f"{group.world}: place them with place_routed_windows")
+    if s.continual_reg_on:
+        if routed:
+            raise ValueError("continual_reg_on is not supported with shard-routed windows; "
+                             "use replicated tables (as the JAX package)")
+        raise NotImplementedError("not ported yet, see ROADMAP.md: continual-learning reg "
+                                  "over several ranks, the incremental driver's "
+                                  "data-parallel branch (Queue A item 14a)")
+    if s.bs % group.world:
+        raise ValueError(f"bs {s.bs} does not split over {group.world} ranks")
+    if s.semantic_on and (s.bs // group.world * (s.ray_sample_count if s.ray_loss else 1)
+                          ) % s.sem_label_decimation:
+        raise ValueError("each rank's batch must be a whole number of sem_label_decimation "
+                         "strides")
+    if (batch_windows is not None and not routed and mode in ("fused", "pallas")
+            and not batch_windows.deterministic):
+        raise ValueError("replicated ranks need windows with sorted preps for the update's "
+                         "deterministic sum: precompute_batch_windows(..., deterministic=True)")
+    return True
 
 
 def _check_modes(s: TrainSettings, mode, feats, m_feats, n_used, pool, pre_lookups,
                  batch_windows, batch_indices, sr_noise16, n_iters, shadow,
-                 generator, near_indices, near_shifts) -> None:
+                 generator, near_indices, near_shifts, routed_group=None) -> None:
     """The JAX package's gates (trainer.py:756-836): windows need their
     prerequisites, bf16 moments the kernel update, bf16 tables fused
     windows and bf16 moments, the continual reg its shadow tables and, on
@@ -690,8 +951,13 @@ def _check_modes(s: TrainSettings, mode, feats, m_feats, n_used, pool, pre_looku
                 f"pre_lookups (mode: {mode})")
         if batch_indices is not None:
             raise ValueError("batch_indices and batch_windows both choose the batches")
-        built = batch_windows.built_for
-        if built != (tuple(sh[0] for sh in shapes), tuple(n_used)):
+        if routed_group is not None:
+            want = tuple(C // routed_group.world for C in batch_windows.route.sizes)
+            if tuple(sh[0] for sh in shapes) != want:
+                raise ValueError(f"routed windows were built for blocks of {want} rows, the "
+                                 f"tables have {tuple(sh[0] for sh in shapes)}")
+        elif batch_windows.built_for != (tuple(sh[0] for sh in shapes), tuple(n_used)):
+            built = batch_windows.built_for
             raise ValueError(f"batch_windows were built for (sizes, n_used) {built}, "
                              f"the tables have {tuple(sh[0] for sh in shapes)}, "
                              f"{tuple(n_used)}: recompute them")
@@ -741,12 +1007,17 @@ def _check_modes(s: TrainSettings, mode, feats, m_feats, n_used, pool, pre_looku
                                  f"({n_iters}, cnt, 3)")
 
 
-def _near_points(s: TrainSettings, coords, it, generator, near_indices, near_shifts):
+def _near_points(s: TrainSettings, coords, it, generator, near_indices, near_shifts,
+                 B: Optional[int] = None, lo: int = 0):
     """The consistency term's jittered near points of one step: ``cnt =
     min(consistency_count, B)`` batch samples (uniform, with replacement)
     shifted by U(-r, r) per axis, r = ``consistency_range * scale`` (JAX
-    body_fused, trainer.py:1190-1198), or the given draws."""
-    B = coords.shape[0]
+    body_fused, trainer.py:1190-1198), or the given draws.  ``B``, ``lo``:
+    the whole batch's size and the first sample of ``coords`` in it (a
+    rank's share): the draws are the whole batch's, and the points whose
+    source sample lies in the share are kept.  Returns (source indices in
+    ``coords``, near coords)."""
+    B = coords.shape[0] if B is None else B
     if near_indices is not None:
         idx = near_indices[it].to(device=coords.device, dtype=torch.int64)
         shift = near_shifts[it].to(device=coords.device, dtype=coords.dtype)
@@ -756,7 +1027,37 @@ def _near_points(s: TrainSettings, coords, it, generator, near_indices, near_shi
         idx = torch.randint(0, B, (cnt,), generator=generator, device=coords.device)
         shift = (torch.rand((cnt, 3), generator=generator, device=coords.device)
                  * (2 * r) - r).to(coords.dtype)
+    if B != coords.shape[0]:
+        keep = (idx >= lo) & (idx < lo + coords.shape[0])
+        idx, shift = idx[keep] - lo, shift[keep]
     return idx, coords[idx] + shift
+
+
+def _sum_rows(group, rows: torch.Tensor, sums: torch.Tensor):
+    """The ranks' per-row sums added up (the lazy and dense updates'
+    compact all-reduce): ``rows`` (S,) int64 unique rows of this rank,
+    ``sums`` (S, D).  Every rank gets the same (unique rows, sums), each
+    row's parts added in rank order."""
+    from ..parallel import comm
+
+    D = sums.shape[1]
+    n = comm.all_gather(group, torch.tensor([rows.shape[0]], device=rows.device))
+    S = int(n.max())
+    pad_r = torch.full((S,), -1, dtype=torch.int64, device=rows.device)
+    pad_r[: rows.shape[0]] = rows
+    pad_g = torch.zeros((S, D), dtype=torch.float32, device=rows.device)
+    pad_g[: rows.shape[0]] = sums
+    all_r = comm.all_gather(group, pad_r).reshape(-1)
+    all_g = comm.all_gather(group, pad_g).reshape(-1, D)
+    rank_of = torch.arange(group.world, device=rows.device).repeat_interleave(S)
+    ok = all_r >= 0
+    u, inv = torch.unique(all_r[ok], sorted=True, return_inverse=True)
+    parts = torch.zeros((u.shape[0], group.world, D), dtype=torch.float32, device=rows.device)
+    parts[inv, rank_of[ok]] = all_g[ok]  # one (row, rank) pair per entry
+    total = parts[:, 0].clone()
+    for k in range(1, group.world):
+        total += parts[:, k]
+    return u, total
 
 
 def _dense_reg(s: TrainSettings, shadow, feats, corners):
@@ -783,7 +1084,7 @@ def train_chunk(
     generator: Optional[torch.Generator],
     settings: TrainSettings,
     n_iters: int,
-    batch_sharding=None,
+    group=None,
     pre_lookups=None,
     batch_windows: Optional[BatchWindows] = None,
     batch_indices: Optional[torch.Tensor] = None,
@@ -831,6 +1132,32 @@ def train_chunk(
     and ``lambda * reg_loss`` to ``total_loss``.  The tables are read, never
     written; ``last_frame`` must not alias the trained features.
 
+    ``group`` (:class:`~..parallel.mesh.DataGroup` of two or more ranks,
+    the JAX package's ``batch_sharding``): every rank draws the same global
+    batch (same generator state, windows or seams) and trains its slice
+    ``group.batch_slice(bs)``, so the ranks' slices make up the one-card
+    batch; each loss term divides by the whole batch's count and the
+    decoders' gradients are summed across ranks (``parallel.comm``).  The
+    tables' update follows ``group.table_sharding``:
+
+    * ``replicated``, kernel: every rank gathers all ranks' entries (rows and
+      gradients, bf16 when the kernel rounds them so) and runs K1/K2 on
+      them with the deterministic sum, so the replicas stay bit-identical
+      (JAX's update islands, trainer.py:1282-1330, :1623-1660); windows
+      need ``precompute_batch_windows(..., deterministic=True)``;
+    * ``replicated``, ``sparse`` / ``dense``: the touched rows' gradients
+      are summed across ranks (:func:`_sum_rows`) and every rank steps;
+    * ``rows`` with routed windows (``precompute_batch_windows(...,
+      shards=n)`` placed by ``parallel.mesh.place_routed_windows``): each
+      rank gathers the rows it serves and one all-to-all brings the
+      samples' ranks their rows; after the backward a second all-to-all
+      takes each entry's gradient to its row's rank, which runs
+      ``adam_kernel.fused_adam_shard`` over its blocks (JAX ``body_winx``'s
+      islands, trainer.py:1473-1515, :1572-1622).
+
+    The returned aux are the whole batch's on every rank (one sum across
+    ranks per chunk).
+
     Returns (params, opt_state, {"mean": aux means, "last": last aux}), the
     aux values 0-dim tensors on the device.
 
@@ -840,8 +1167,9 @@ def train_chunk(
     in place without those entries: the tables and moments are not the
     reference's and should be discarded.
     """
+    from ..parallel import comm
+
     s = settings
-    _check_supported(s, batch_sharding)
     if batch_indices is None and generator is None and batch_windows is None:
         raise ValueError("pass a torch.Generator, batch_indices or batch_windows")
     if batch_indices is not None and tuple(batch_indices.shape) != (n_iters, s.bs):
@@ -858,9 +1186,11 @@ def train_chunk(
     device = feats[0].device
     n_used = list(s.n_used) if s.n_used is not None else [int(f.shape[0]) for f in feats]
     mode = resolve_feature_update(s, batch_windows is not None and batch_windows.fused)
+    dp = _check_supported(s, mode, group, batch_windows)
+    routed = dp and batch_windows is not None and batch_windows.route is not None
     _check_modes(s, mode, feats, m_feats, n_used, pool, pre_lookups, batch_windows,
                  batch_indices, sr_noise16, n_iters, shadow, generator, near_indices,
-                 near_shifts)
+                 near_shifts, group if routed else None)
     grads_bf16 = m_feats[0].dtype == torch.bfloat16
     params_bf16 = feats[0].dtype == torch.bfloat16
     lr_scale, wd = make_group_trees(params, s.lr_level_reduce_ratio, s.weight_decay)
@@ -874,6 +1204,63 @@ def train_chunk(
         # the rendering loss trains sigma with the decoders
         dense["sigma"].requires_grad_(True)
     L = len(s.levels)
+    D = int(feats[0].shape[1])
+    row_base = None
+    if routed:
+        whole = [(C, D) for C in batch_windows.route.sizes]
+        row_base = adam_kernel.shard_row_base(whole, group.world, group.rank)
+
+    def routed_rows(wsel):
+        """Island 1: the rows this rank serves go to their samples' ranks;
+        returns this rank's entries' rows G_i (b, 8, D), leaf tensors."""
+        rt = batch_windows.route
+        srv = rt.serve[wsel].long()  # (n_s, L, E)
+        send = torch.stack([feats[l][srv[:, l].clamp(min=0)] for l in range(L)], dim=1)
+        recv = comm.all_to_all(group, send)  # (n_d, L, E, D)
+        flat = torch.cat([recv.reshape(-1, D), recv.new_zeros((1, D))])
+        G_all = flat[rt.recv_inv[wsel].long()].float().reshape(L, -1, 8, D)
+        G = [G_all[l].contiguous() for l in range(L)]
+        for g_i in G:
+            g_i.requires_grad_()
+        return G
+
+    def routed_update(wsel, grads, lr, bc1, bc2, step):
+        """Island 2: each entry's gradient goes to its row's rank, which
+        steps its blocks with K2's row-sharded caller."""
+        rt = batch_windows.route
+        gflat = torch.cat([g.reshape(-1, D) for g in grads] + [grads[0].new_zeros((1, D))])
+        send = gflat[rt.owner_sel[wsel].long()]  # (n_d, L, E, D)
+        if grads_bf16:  # the kernel rounds the entries to bf16: ship them so
+            send = send.to(torch.bfloat16)
+        recv = comm.all_to_all(group, send).reshape(-1, D).float()
+        adam_kernel.fused_adam_shard(
+            feats, m_feats, v_feats, None, recv, lr, bc1, bc2, lr_scale[FEATURES], row_base,
+            eps=s.adam_eps, grads_bf16=grads_bf16, sr_seed=step if params_bf16 else None,
+            pre=adam_kernel.window_prep(rt.pre, wsel))
+
+    def gathered_entries(corners, grads, near):
+        """The replicated island's entries: every rank's rows and gradients
+        per level, in rank order (each rank's near points padded to the
+        batch's count with trashbin rows and zero gradients)."""
+        rows_l, g_l = [], []
+        for i in range(L):
+            r, g = corners[i].reshape(-1).to(torch.int32), grads[i].reshape(-1, D)
+            if near is not None:
+                cnt = near["cnt"]
+                k = near["corners"][i].shape[0]
+                pad_r = torch.full((cnt - k, 8), feats[i].shape[0] - 1, dtype=torch.int32,
+                                   device=device)
+                r = torch.cat([r, near["corners"][i].to(torch.int32).reshape(-1),
+                               pad_r.reshape(-1)])
+                g = torch.cat([g, near["G"][i].grad.reshape(-1, D),
+                               g.new_zeros(((cnt - k) * 8, D))])
+            rows_l.append(r)
+            g_l.append(g)
+        R = comm.all_gather(group, torch.stack(rows_l))  # (n, L, M_loc)
+        Gs = torch.stack(g_l)
+        Gg = comm.all_gather(group, Gs.to(torch.bfloat16) if grads_bf16 else Gs)
+        return ([R[:, i].reshape(-1).contiguous() for i in range(L)],
+                [Gg[:, i].reshape(-1, D).float().contiguous() for i in range(L)])
 
     def one_step(step, it):
         """One step (JAX's scan body): the batch, the loss and its
@@ -895,30 +1282,50 @@ def train_chunk(
                 idx = (ray_idx[:, None] * S + torch.arange(S, device=device)[None, :]).reshape(-1)
             else:
                 idx = torch.sort(draw).values if s.sort_batch else draw
+        counts = None
+        idx_all = idx
+        if dp:
+            # this rank's slice of the global batch; the loss's counts are
+            # the whole batch's
+            sl = group.batch_slice(idx.shape[0])
+            idx = idx[sl]
+            if ray_idx is not None:
+                ray_idx = ray_idx[group.batch_slice(s.bs)]
+            counts = {"n": int(idx_all.shape[0]), "n_rays": s.bs,
+                      "n_sem": -(-int(idx_all.shape[0]) // s.sem_label_decimation),
+                      "n_near": (int(near_indices.shape[1]) if near_indices is not None
+                                 else min(s.consistency_count, int(idx_all.shape[0])))}
+            if s.ekional_loss_on or s.normal_loss_on:
+                counts["n_surf"] = (pool["weight"][idx_all] > 0).sum()
         batch = _gather_batch(pool, idx, s)
         if ray_idx is not None:
             batch["ray_depth"] = pool["ray_depth"][ray_idx]
-        if pre_lookups is not None:
+        corners = None
+        if routed:
+            found = [pre_lookups[i][1][idx] for i in range(L)]
+        elif pre_lookups is not None:
             corners = [pre_lookups[i][0][idx] for i in range(L)]
             found = [pre_lookups[i][1][idx] for i in range(L)]
         else:
             corners, found = _lookups(tables, feats, batch["coord"], s.levels)
         near = None
         if s.consistency_loss_on:
+            lo = group.batch_slice(idx_all.shape[0]).start if dp else 0
             n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
-                                           near_shifts)
+                                           near_shifts, int(idx_all.shape[0]), lo)
             # live probes even with pool lookups: the near points are not pool samples
             corners_n, found_n = _lookups(tables, feats, n_coords, s.levels)
             near = {"idx": n_idx, "coords": n_coords, "corners": corners_n, "found": found_n,
-                    "G": _gather_rows(feats, corners_n, leaf=mode != "dense")}
-        G = _gather_rows(feats, corners, leaf=mode != "dense")
+                    "G": _gather_rows(feats, corners_n, leaf=mode != "dense"),
+                    "cnt": counts["n_near"] if dp else None}
+        G = routed_rows(wsel) if routed else _gather_rows(feats, corners, leaf=mode != "dense")
         for p in dense.values():
             p.grad = None
         if mode == "dense":
             for f in feats:
                 f.grad = None
 
-        total, aux = _compute_loss_sparse(params, G, batch, found, s, near)
+        total, aux = _compute_loss_sparse(params, G, batch, found, s, near, counts)
         if mode == "dense" and s.continual_reg_on:
             reg = _dense_reg(s, shadow, feats, corners)
             total = total + s.lambda_forget * reg
@@ -928,6 +1335,17 @@ def train_chunk(
 
         lr = lr_at_step(s.lr, step, s.lr_decay_step, s.lr_iters_reduce_ratio)
         dense_grads = {k: p.grad for k, p in dense.items()}
+        if dp:
+            # the decoders' gradients summed across ranks (rank order)
+            have = [k for k, g in dense_grads.items() if g is not None]
+            dense_grads.update(zip(have, comm.sum_across(group, [dense_grads[k] for k in have])))
+            if mode == "dense":
+                for i, f in enumerate(feats):
+                    rows = torch.unique(torch.cat(
+                        [corners[i].reshape(-1)]
+                        + ([near["corners"][i].reshape(-1)] if near is not None else [])).long())
+                    u, tot = _sum_rows(group, rows, f.grad[rows])
+                    f.grad = torch.zeros_like(f.grad).index_put_((u,), tot)
         if not s.opt_adam:
             # SGD runs the dense update only (JAX _resolve_mode)
             sgd_update(dense, dense_grads, opt_state, lr, lr_scale, wd)
@@ -947,6 +1365,8 @@ def train_chunk(
             reg_total = None
             for i in range(L):
                 seg = sparse_adam.segment_by_row(corners[i], grads[i], feats[i].shape[0])
+                if dp:
+                    seg = sparse_adam.SegmentedGrads(*_sum_rows(group, seg.rows, seg.grads))
                 kw = {}
                 if s.continual_reg_on:
                     kw = dict(reg_lambda=s.lambda_forget, importance=shadow["importance"][i],
@@ -959,6 +1379,9 @@ def train_chunk(
                 aux["reg_loss"] = reg_total
                 aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg_total
             return aux
+        if routed:
+            routed_update(wsel, grads, lr, bc1, bc2, step)
+            return aux
         if s.continual_reg_on:
             if batch_windows is not None:
                 owner = [o[wsel] for o in batch_windows.owner]
@@ -967,12 +1390,16 @@ def train_chunk(
             grads, reg = _reg_fold(s, shadow, corners, G, grads, owner)
             aux["reg_loss"] = reg
             aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
-        if near is not None:
+        if dp:
+            corners, grads = gathered_entries(corners, grads, near)
+        elif near is not None:
             # the near points' rows ride the update as extra entries
             corners = [torch.cat([c.reshape(-1, 8), cn.reshape(-1, 8)])
                        for c, cn in zip(corners, near["corners"])]
             grads = [torch.cat([g, gn.grad]) for g, gn in zip(grads, near["G"])]
         kw = dict(eps=s.adam_eps, grads_bf16=grads_bf16)
+        if dp:  # the replicas' deterministic sum
+            kw["deterministic"] = True
         if batch_windows is not None and batch_windows.fused:
             noise = None
             if sr_noise16 is not None:
@@ -1024,6 +1451,10 @@ def train_chunk(
     if not hist:
         return params, opt_state, {"mean": {}, "last": {}}
     stacked = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+    if dp:
+        # each rank's terms are its share of the whole batch's: sum them
+        keys = sorted(stacked)
+        stacked = dict(zip(keys, comm.sum_across(group, [stacked[k] for k in keys])))
     return params, opt_state, {
         "mean": {k: a.mean() for k, a in stacked.items()},
         "last": {k: a[-1] for k, a in stacked.items()},

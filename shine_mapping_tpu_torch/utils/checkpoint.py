@@ -117,8 +117,26 @@ def _leaf(d, key: str, device) -> torch.Tensor:
 
 
 def save_checkpoint(path: str, grid, params: Dict[str, Any], opt_state: OptState,
-                    iters: int) -> None:
-    """Full training checkpoint: map structure + params + optimizer state."""
+                    iters: int, group=None) -> None:
+    """Full training checkpoint: map structure + params + optimizer state.
+
+    Over a ``group`` of ranks (``parallel.mesh.DataGroup``) rank 0 writes
+    and the others return; with row-sharded tables every rank first takes
+    part in the gathers of the feature moments (the grid holds the whole
+    tables: ``cli.common.sync_features_to_grid``), so the file is the one
+    format whatever the layout, and loading it into a sharded run cuts each
+    rank's blocks again (``parallel.mesh.place_training_state``)."""
+    if group is not None and group.world > 1:
+        if group.table_sharding == "rows":
+            from ..parallel.mesh import gather_table_rows
+
+            m, v = dict(opt_state.m), dict(opt_state.v)
+            m[FEATURES] = gather_table_rows(group, m[FEATURES])
+            v[FEATURES] = gather_table_rows(group, v[FEATURES])
+            opt_state = OptState(m=m, v=v, step=opt_state.step)
+            params = dict(params, **{FEATURES: list(grid.features)})
+        if not group.primary:
+            return
     out: Dict[str, np.ndarray] = {"iters": np.int64(iters)}
     for k, v in grid.state_dict().items():
         out["grid_" + k] = np.asarray(v)

@@ -865,3 +865,118 @@ def test_option_steps_card_equals_cpu(cuda_device, case):
 
     assert len(chip_smoke.OPTION_CASES) == 10
     chip_smoke.phase_agreement_options(steps=5, cases=chip_smoke.OPTION_CASES[case:case + 1])
+
+
+def _shard_case(rng, device, variant, n=2, C=1 << 13, L=3, M=4000):
+    """Whole tables and entries, and one row shard's blocks and entries."""
+    pdt = torch.bfloat16 if variant == "bf16p" else torch.float32
+    mdt = torch.float32 if variant == "f32" else torch.bfloat16
+    tabs, rows_l, g_l = _tables_and_entries(rng, [C] * L, [C] * L, M, "cpu")
+    whole = [[torch.from_numpy(a).to(dt) for a in lv] for lv, dt in zip(tabs, (pdt, mdt, mdt))]
+    return whole, rows_l, g_l
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "bf16m", "bf16p"])
+def test_shard_kernel_matches_plain_and_unsharded_k2(cuda_device, variant):
+    """K2's row-sharded caller on the card: each of 2 shards against its
+    plain version on CPU copies (f32 rtol 1e-5 / atol 1e-6; every table
+    bit-equal on rows with at most one entry, bf16 p's rounding included),
+    and the 2 shards' blocks concatenated against one unsharded K2 launch
+    on the same entries (the same tolerance; bf16 bit-equal on rows with at
+    most one entry)."""
+    rng = np.random.default_rng(3)
+    n, C, L = 2, 1 << 13, 3
+    whole, rows_l, g_l = _shard_case(rng, cuda_device, variant, n, C, L)
+    kw = dict(grads_bf16=variant != "f32", sr_seed=11 if variant == "bf16p" else None)
+    k2 = [[t.to(cuda_device) for t in lv] for lv in whole]
+    ak.fused_adam_multi(*k2, [r.to(cuda_device) for r in rows_l],
+                        [g.to(cuda_device) for g in g_l], LR, BC1, BC2, [1.0, 0.5, 0.25], **kw)
+    b = C // n
+    single = [torch.bincount(r[r != C - 1].long(), minlength=C) <= 1 for r in rows_l]
+    ak.reset_launch_counts()
+    blocks = []
+    for k in range(n):
+        rl, gl = [], []
+        for l in range(L):
+            r = rows_l[l].long()
+            sel = (r // b == k) & (r != C - 1)
+            rl.append(r[sel] - k * b + l * b)
+            gl.append(g_l[l][sel])
+        perm = torch.from_numpy(rng.permutation(sum(len(x) for x in rl)))
+        rows = torch.cat(rl)[perm].to(torch.int32)
+        g = torch.cat(gl)[perm]
+        loc = [[t[k * b:(k + 1) * b].clone() for t in lv] for lv in whole]
+        card = [[t.to(cuda_device) for t in lv] for lv in loc]
+        base = ak.shard_row_base([(C, D)] * L, n, k)
+        ak.fused_adam_shard(*card, rows.to(cuda_device), g.to(cuda_device), LR, BC1, BC2,
+                            [1.0, 0.5, 0.25], base, **kw)
+        ak.fused_adam_shard_plain(*loc, rows, g, LR, BC1, BC2, [1.0, 0.5, 0.25], base, **kw)
+        for t in range(3):
+            for l in range(L):
+                a, c, s_ = card[t][l].cpu(), loc[t][l], single[l][k * b:(k + 1) * b]
+                assert torch.equal(a[s_].view(torch.int16) if a.itemsize == 2 else a[s_],
+                                   c[s_].view(torch.int16) if c.itemsize == 2 else c[s_])
+                if a.dtype == torch.float32:
+                    torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+        blocks.append(card)
+    assert ak.LAUNCHES["fused_adam_multi_shard" + ak._SUFFIX[variant]] == n
+    for t in range(3):
+        for l in range(L):
+            got = torch.cat([blk[t][l] for blk in blocks]).cpu()
+            want = k2[t][l].cpu()
+            s_ = single[l]
+            if got.dtype == torch.bfloat16:
+                assert torch.equal(got[s_].view(torch.int16), want[s_].view(torch.int16))
+            else:
+                assert torch.equal(got[s_], want[s_])
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "bf16m", "bf16p"])
+def test_deterministic_sum_repeats_and_equals_plain(cuda_device, variant):
+    """The update with ``deterministic=True`` (the replicas' sum: each row's
+    entries in entry order from the sorted prep) gives the same bits on
+    every launch, and the bits of the plain version on the CPU on EVERY row
+    (``index_add_`` on the CPU sums in the same order)."""
+    rng = np.random.default_rng(4)
+    whole, rows_l, g_l = _shard_case(rng, cuda_device, variant)
+    kw = dict(grads_bf16=variant != "f32", sr_seed=5 if variant == "bf16p" else None)
+    runs = []
+    for _ in range(2):
+        card = [[t.to(cuda_device) for t in lv] for lv in whole]
+        ak.fused_adam_multi(*card, [r.to(cuda_device) for r in rows_l],
+                            [g.to(cuda_device) for g in g_l], LR, BC1, BC2, [1.0, 0.5, 0.25],
+                            deterministic=True, **kw)
+        runs.append(card)
+    cpu = [[t.clone() for t in lv] for lv in whole]
+    ak.fused_adam_multi(*cpu, rows_l, g_l, LR, BC1, BC2, [1.0, 0.5, 0.25], **kw)
+    for t in range(3):
+        for a, b, c in zip(runs[0][t], runs[1][t], cpu[t]):
+            bits = (lambda x: x.cpu().view(torch.int16 if x.itemsize == 2 else torch.int32))
+            assert torch.equal(bits(a), bits(b)), "two launches parted"
+            assert torch.equal(bits(a), bits(c)), "the deterministic sum left the plain order"
+
+
+@pytest.mark.cuda
+def test_deterministic_sum_refuses_the_kernel_prep(cuda_device):
+    """csrc/entry_prep.cu bins a tile's entries in the order its atomics
+    land, so a row's entries may lie in several runs: the deterministic sum
+    refuses that prep (it would keep one run of each row) and raises before
+    any launch, leaving the tables and the launch count as they were."""
+    rng = np.random.default_rng(6)
+    whole, rows_l, g_l = _shard_case(rng, cuda_device, "f32")
+    card = [[t.to(cuda_device) for t in lv] for lv in whole]
+    rows_c = [r.to(cuda_device) for r in rows_l]
+    pre = ak.entry_prep(rows_c, [t.shape[0] for t in card[0]], None, card[0][0].shape[1])
+    assert not pre.sorted_by_row
+    before = [[t.clone() for t in lv] for lv in card]
+    ak.reset_launch_counts()
+    with pytest.raises(ValueError, match="sorted by row"):
+        ak.fused_adam_multi(*card, rows_c, [g.to(cuda_device) for g in g_l], LR, BC1, BC2,
+                            [1.0, 0.5, 0.25], pre=pre, deterministic=True)
+    assert ak.LAUNCHES["fused_adam_multi"] == 0
+    for x, y in zip(card, before):
+        for a, b in zip(x, y):
+            assert torch.equal(a, b)

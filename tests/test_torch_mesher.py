@@ -253,15 +253,18 @@ def test_bf16_tables_mesh_from_their_rows(setup):
 
 
 def test_unported_paths_raise(setup):
-    """Data-parallel meshing still raises naming its ROADMAP item; vertex
+    """Data-parallel meshing, which raised before it was ported, takes a
+    ``parallel.mesh.DataGroup`` (``group=``; bit-equal to one rank in
+    tests/test_torch_dist_cli.py), not the JAX package's ``dp_mesh``; vertex
     semantics, which raised before they were ported, now run through: every
     vertex kept gets a class colour (their parity with the JAX package is
     tests/test_torch_semantic.py's)."""
     from shine_mapping_tpu_torch.models.decoder import Decoder
 
     jm, m, _ = setup
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="dp_mesh"):
         Mesher(m.config, m.grid, m.geo_params, dp_mesh=object())
+    assert Mesher(m.config, m.grid, m.geo_params, group=None).group is None
     sem = Decoder(8, 32, 2, 20, generator=torch.Generator().manual_seed(3), device="cpu")
     mesh = Mesher(m.config, m.grid, m.geo_params, sem).recon_bbx_mesh(
         (np.full(3, -34 / 64), np.full(3, 34 / 64)), 1 / 64, "", "", estimate_sem=True,

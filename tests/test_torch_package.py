@@ -34,7 +34,8 @@ def test_port_imports_without_jax():
               "eval.crop_intersection", "utils.checkpoint", "utils.profiling",
               "utils.experiment", "utils.metrics_logger", "cli.common", "cli.shine_batch",
               "cli.shine_incre", "train.importance", "train.sparse_adam",
-              "ops.marching", "ops.native_build"):
+              "ops.marching", "ops.native_build", "parallel", "parallel.mesh",
+              "parallel.comm", "parallel.ingest"):
         assert "shine_mapping_tpu_torch." + m in mods, m
     code = (
         "import sys\n"
@@ -51,6 +52,26 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_no_port_module_imports_the_jax_package():
+    """No import statement of the port, at module level or inside a function
+    (the imports that run only when a path is taken), names the JAX package
+    or jax."""
+    import ast
+
+    root = os.path.dirname(shine_mapping_tpu_torch.__file__)
+    bad = []
+    for path in glob.glob(os.path.join(root, "**", "*.py"), recursive=True):
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "shine_mapping_tpu")]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: os.path.relpath(p, REPO))

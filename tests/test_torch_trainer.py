@@ -38,6 +38,7 @@ from shine_mapping_tpu.config import SHINEConfig as JaxConfig
 from shine_mapping_tpu.data.dataset import LiDARDataset as JaxDataset
 from shine_mapping_tpu.ops.hashgrid import HashGridHost as JaxGrid
 from shine_mapping_tpu.train import trainer as jtrainer
+from shine_mapping_tpu_torch.parallel.mesh import DataGroup
 from shine_mapping_tpu.train.optimizer import init_opt_state as jinit_opt_state
 from shine_mapping_tpu_torch import interop
 from shine_mapping_tpu_torch.config import SHINEConfig
@@ -194,17 +195,23 @@ def test_train_chunk_at_reference_eps_tracks_jax(worlds):
         assert share >= 0.97, f"features[{i}]: only {share:.4f} of entries agree"
 
 
+
+# two ranks holding row blocks of the tables (no process group is needed:
+# the check raises before any collective)
+_ROWS_GROUP = DataGroup(rank=0, world=2, device=torch.device("cpu"), table_sharding="rows")
+
 @pytest.mark.parametrize("settings_kw,call_kw", [
     (dict(feature_update="sparse"), {}), (dict(opt_adam=False), {}),
     (dict(normal_loss_on=True), {}), (dict(ray_loss=True, main_loss_type="dr_neus"), {}),
-    (dict(sort_batch=True), {}), ({}, dict(pre_lookups=(), batch_sharding=object())),
+    (dict(sort_batch=True), {}), ({}, dict(pre_lookups=(), group=_ROWS_GROUP)),
 ], ids=["sparse", "sgd", "normal_loss", "ray_loss", "sort_batch", "pre_lookups"])
 def test_train_chunk_rejects_unported_options(worlds, settings_kw, call_kw):
-    """Multi-GPU batch sharding (with or without pool lookups) still raises
-    NotImplementedError naming its ROADMAP item.  The options of the cases
-    that raised before they were ported now train through: two steps with
-    finite losses and parameters (their parity with the JAX package is
-    tests/test_torch_options.py's)."""
+    """Row-sharded tables without routed windows (with or without pool
+    lookups) still raise NotImplementedError naming their ROADMAP item
+    (data-parallel training itself is tests/test_torch_dist*.py's).  The
+    options of the cases that raised before they were ported now train
+    through: two steps with finite losses and parameters (their parity with
+    the JAX package is tests/test_torch_options.py's)."""
     from shine_mapping_tpu_torch.train.optimizer import init_opt_state
 
     cfg_t, grid_t, pool_t = worlds["torch"]
@@ -222,7 +229,7 @@ def test_train_chunk_rejects_unported_options(worlds, settings_kw, call_kw):
         dev["sample_depth"] = depth
         dev["ray_depth"] = depth[: n - n % s.ray_sample_count].reshape(
             -1, s.ray_sample_count).mean(dim=1)
-    if "batch_sharding" in call_kw:
+    if "group" in call_kw:
         with pytest.raises(NotImplementedError, match="item 14"):
             trainer.train_chunk(params, init_opt_state(params), grid_t.tables, dev, n, 0,
                                 torch.Generator(), s, 1, **call_kw)
