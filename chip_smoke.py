@@ -133,7 +133,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    table's element), wrapper / alone / plain / bound ms.  ``[multi]``: ranks
    spawned on the cards present (two on one card over gloo; one a card over
    NCCL where there are two or more) train the ICRA config on the bench
-   world, 50 steps a run: (a) replicated tables, iid K2; (b) replicated,
+   world, 30 steps a run: (a) replicated tables, iid K2; (b) replicated,
    the bf16 map mode on fused windows; (c) row-sharded tables on routed
    fused windows, f32 (K2's row-sharded caller); (d) (c) with bf16 tables;
    (e) (c) with bf16 moments, 20 steps.  Each: ms/step, launches per rank,
@@ -148,9 +148,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    6's world, 500 steps: the bars, within 5 F-score points of run B, and on
    its rank-0 checkpoint two ranks' sharded data phase (= the one-process
    pool and octree), data-parallel meshing (= one rank's masks and sdf) and
-   the checkpoint cut into row blocks and written again (bit-equal).
-   ``--only agreement,city`` (any of agreement, map, incre, city, multi)
-   runs those phases alone and prints no result line.
+   the checkpoint cut into row blocks and written again (bit-equal);
+10. incre-multi: the incremental driver over several ranks and row-sharded
+   tables on iid batches.  ``[kernels]`` K2's row-sharded caller on a live
+   prep: the entries of one step as a live routing delivers them to each of
+   2 shards (cells padded to the largest), binned by csrc/entry_prep.cu
+   (``entry_prep_shard``: the sorted prep's tiles and (row, entry) pairs,
+   pads excluded) and stepped by ``fused_adam_shard`` against its plain
+   version on that prep (phase 2's checks plus the sum-order spread, bf16
+   moments' one-ulp ties), with prep / wrapper / alone / plain / library /
+   bound ms.  ``[incre-multi]`` (f), (g): ranks as phase 9's train the ICRA
+   config on the bench world with row-sharded tables on iid batches, 50
+   steps (in the full run in phase 9's spawn, on its bench world), (f)
+   ``fused`` (one live prep and one K2 row-sharded launch a step), (g)
+   ``sparse`` (no kernel); each held after the first step and
+   the last against the one-rank run of the same draws as phase 9 holds
+   (c)-(e).  (h), (i): the incremental CLI over two ranks (gloo on one
+   card, NCCL one a card) on 5 frames of phase 7's world, (h) run E's
+   config (replicated tables, the reg on fused windows, bf16 moments, K2),
+   (i) run C's config with row-sharded tables (the reg on the rows' ranks,
+   live routing, K2's row-sharded caller); launches per rank, the replicas
+   (h) and the importance tables bit-identical after every frame,
+   ``reg_loss`` after frame 0, the F-score within 5 points of the one-rank
+   run of the same config and frames.
+   ``--only agreement,city`` (any of agreement, map, incre, city, multi,
+   incre-multi) runs those phases alone and prints no result line.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -2862,18 +2884,28 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
 
 
 # phase 9's training runs on the bench world: (tag, label, table layout,
-# fused windows, bf16 moments, bf16 tables, the update's launch key, steps)
+# fused windows, bf16 moments, bf16 tables, the update's launch key, steps,
+# feature_update); 30 and 20 steps keep the whole smoke within its time
 MULTI_RUNS = (
     ("a", "replicated tables, iid K2", "replicated", False, False, False,
-     "fused_adam_multi", 50),
+     "fused_adam_multi", 30, "pallas"),
     ("b", "replicated tables, bf16 map mode on fused windows (K2 + SR)", "replicated", True,
-     True, True, "fused_adam_multi_bf16p", 50),
+     True, True, "fused_adam_multi_bf16p", 30, "pallas"),
     ("c", "row-sharded tables, routed fused windows, f32 (K2 shard)", "rows", True, False,
-     False, "fused_adam_multi_shard", 50),
+     False, "fused_adam_multi_shard", 30, "pallas"),
     ("d", "row-sharded tables, routed fused windows, bf16 tables (K2 shard + SR)", "rows",
-     True, True, True, "fused_adam_multi_shard_bf16p", 50),
+     True, True, True, "fused_adam_multi_shard_bf16p", 30, "pallas"),
     ("e", "row-sharded tables, routed fused windows, bf16 moments (K2 shard)", "rows", True,
-     True, False, "fused_adam_multi_shard_bf16m", 20),
+     True, False, "fused_adam_multi_shard_bf16m", 20, "pallas"),
+)
+# phase 10's: row-sharded tables on iid batches, the entries routed live each
+# step (no launch key: the lazy update runs no kernel)
+ROWS_IID_RUNS = (
+    ("f", "row-sharded tables, iid batches routed live, fused (K2 shard on a live "
+     "csrc/entry_prep.cu prep)", "rows", False, False, False, "fused_adam_multi_shard", 50,
+     "fused"),
+    ("g", "row-sharded tables, iid batches routed live, sparse (lazy Adam on the rows' ranks)",
+     "rows", False, False, False, None, 50, "sparse"),
 )
 
 
@@ -2934,8 +2966,8 @@ def _step_one_check(tag, first, ref_tabs, init, captured, s, bc, variant):
     return err, equal / total
 
 
-def _multi_rank(rank, world, port, backend, out_path, steps_scale):
-    """Phase 9's training runs on one rank (module doc)."""
+def _multi_rank(rank, world, port, backend, out_path, runs=MULTI_RUNS):
+    """Phase 9's training runs (``runs``: phase 10's) on one rank (module doc)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2974,11 +3006,10 @@ def _multi_rank(rank, world, port, backend, out_path, steps_scale):
         p = dict(params, **{FEATURES: feats})
         return float(trainer.batch_loss(p, grid.tables, pool_dev, fixed, s)["total_loss"])
 
-    for tag, label, layout, windows, mbf, pbf, key, steps in MULTI_RUNS:
-        steps = max(10, int(steps * steps_scale))
+    for tag, label, layout, windows, mbf, pbf, key, steps, update in runs:
         rows = layout == "rows"
         variant = "bf16p" if pbf else ("bf16m" if mbf else "f32")
-        s = trainer.TrainSettings.from_config(cfg, grid.levels, feature_update="pallas",
+        s = trainer.TrainSettings.from_config(cfg, grid.levels, feature_update=update,
                                               fuse_update_levels=not windows,
                                               n_used=trainer.used_rows_for(grid))
         params, opt = fresh(s, mbf, pbf)
@@ -3043,14 +3074,15 @@ def _multi_rank(rank, world, port, backend, out_path, steps_scale):
         res = dict(label=label, layout=layout, steps=steps, before=before, after=after,
                    losses=losses, ms=float(np.median(times[2:])), first_ms=times[:2],
                    windows_s=t_win, per_rank=per_rank, replicas=replicas if not rows else None,
-                   key=key, E=win.route.E if rows else None)
+                   key=key, E=win.route.E if win is not None and rows else None)
         if rows and rank == 0:
-            # the one-rank run of the same windows from the same state
+            # the one-rank run of the same windows (iid: the same draws) from
+            # the same state
             ref_p, ref_o = fresh(s, mbf, pbf)
-            win_1 = trainer.precompute_batch_windows(
+            win_1 = None if win is None else trainer.precompute_batch_windows(
                 pre, n_valid, None, s, shapes, fused=True, window_indices=win.idx)
-            captured = []
-            real = ak.fused_adam_multi
+            captured, seg = [], []
+            real, real_seg = ak.fused_adam_multi, trainer.sparse_adam.segment_by_row
 
             def capture(ps, ms, vs, rows_list, g_list, *a, **kw):
                 if not captured:
@@ -3058,14 +3090,22 @@ def _multi_rank(rank, world, port, backend, out_path, steps_scale):
                                      [g.reshape(-1, g.shape[-1]).clone() for g in g_list]))
                 return real(ps, ms, vs, rows_list, g_list, *a, **kw)
 
-            ak.fused_adam_multi = capture
+            def capture_seg(corners, contribs, table_rows):  # the lazy update's entries
+                if len(seg) < len(shapes):
+                    seg.append((corners.reshape(-1).clone(),
+                                contribs.reshape(-1, contribs.shape[-1]).clone()))
+                    if len(seg) == len(shapes):
+                        captured.append(tuple(map(list, zip(*seg))))
+                return real_seg(corners, contribs, table_rows)
+
+            ak.fused_adam_multi, trainer.sparse_adam.segment_by_row = capture, capture_seg
             try:
                 gen_1 = torch.Generator(device=dev).manual_seed(0)
                 ref_p, ref_o, _ = trainer.train_chunk(ref_p, ref_o, grid.tables, pool_dev,
                                                       n_valid, 0, gen_1, s, 1,
                                                       pre_lookups=pre, batch_windows=win_1)
             finally:
-                ak.fused_adam_multi = real
+                ak.fused_adam_multi, trainer.sparse_adam.segment_by_row = real, real_seg
             ref_first = whole(ref_p, ref_o, False)
             init_tabs = [[f.to(torch.bfloat16) if pbf else f.clone() for f in init],
                          [torch.zeros_like(x) for x in ref_first[1]],
@@ -3091,10 +3131,12 @@ def _multi_rank(rank, world, port, backend, out_path, steps_scale):
     dist.destroy_process_group()
 
 
-def phase_multi_train(steps_scale=1.0):
-    """Phase 9's training runs over the ranks the cards allow: two ranks on
-    one card over gloo, or one rank a card over NCCL.  Returns per run the
-    launches summed over the ranks."""
+def phase_multi_train(runs=MULTI_RUNS):
+    """Phase 9's training runs and phase 10's (``runs``: any of
+    ``MULTI_RUNS`` and ``ROWS_IID_RUNS``, in one spawn on one bench world)
+    over the ranks the cards allow: two ranks on one card over gloo, or one
+    rank a card over NCCL.  Returns per run tag the launches summed over the
+    ranks."""
     import math
     import tempfile
 
@@ -3105,32 +3147,40 @@ def phase_multi_train(steps_scale=1.0):
 
     n_cards = torch.cuda.device_count()
     world, backend = (n_cards, "nccl") if n_cards >= 2 else (2, "gloo")
-    print(f"[multi] {world} ranks over {backend} on {n_cards} card(s); the ICRA MaiCity "
-          f"config ({ICRA_CONFIG}) on the bench world, {[r[-1] for r in MULTI_RUNS]} steps")
+    phase = {r[0]: "incre-multi" if r in ROWS_IID_RUNS else "multi" for r in runs}
+    tag = phase[runs[0][0]]
+    print(f"[{tag}] {world} ranks over {backend} on {n_cards} card(s); the ICRA MaiCity "
+          f"config ({ICRA_CONFIG}) on the bench world, runs {[r[0] for r in runs]} at "
+          f"{[r[7] for r in runs]} steps")
     with tempfile.TemporaryDirectory(prefix="smoke_multi_") as tmp:
         out = os.path.join(tmp, "multi.pt")
         t0 = time.perf_counter()
-        mp.start_processes(_multi_rank, args=(world, mesh.free_port(), backend, out,
-                                              steps_scale),
+        mp.start_processes(_multi_rank, args=(world, mesh.free_port(), backend, out, runs),
                            nprocs=world, start_method="spawn", join=True)
         res = torch.load(out, weights_only=False)
-    print(f"[multi] ranks ran in {time.perf_counter() - t0:.1f} s (bench world built in "
+    print(f"[{tag}] ranks ran in {time.perf_counter() - t0:.1f} s (bench world built in "
           f"{res['world_s']:.1f} s a rank)")
     launches = {}
-    for tag, *_ in MULTI_RUNS:
-        r = res[tag]
-        key = r["key"]
+    for run in runs:
+        t = run[0]
+        r = res[t]
+        tag = phase[t]
+        key, live = r["key"], run[2] == "rows" and not run[3]
         per = [p["launches"] for p in r["per_rank"]]
-        n_launch = [c[key] for c in per]
-        assert all(c == r["steps"] for c in n_launch), \
-            f"({tag}) {key}: {n_launch} launches per rank, want {r['steps']} each"
+        n_launch = [c[key] if key else 0 for c in per]
+        assert all(c == (r["steps"] if key else 0) for c in n_launch), \
+            f"({t}) {key}: {n_launch} launches per rank, want {r['steps']} each"
+        if live and key:  # one live prep a step (csrc/entry_prep.cu)
+            assert all(c["entry_prep"] == r["steps"] for c in per), \
+                f"({t}) entry_prep: {[c['entry_prep'] for c in per]} launches per rank"
         others = {k: n for c in per for k, n in c.items() if k not in (key, "entry_prep") and n}
-        assert not others, f"({tag}) other kernels launched: {others}"
+        assert not others, f"({t}) other kernels launched: {others}"
+        launches[t] = {}
         for c in per:
             for k2, n2 in c.items():
-                launches[k2] = launches.get(k2, 0) + n2
-        assert all(math.isfinite(x) for x in r["losses"]), f"({tag}) non-finite loss"
-        assert r["after"] < r["before"], f"({tag}) the fixed-sample loss did not fall"
+                launches[t][k2] = launches[t].get(k2, 0) + n2
+        assert all(math.isfinite(x) for x in r["losses"]), f"({t}) non-finite loss"
+        assert r["after"] < r["before"], f"({t}) the fixed-sample loss did not fall"
         comm0 = r["per_rank"][0]["comm"]
         busy = [p["busy"] for p in r["per_rank"]]
         if busy[0] is None:
@@ -3145,21 +3195,22 @@ def phase_multi_train(steps_scale=1.0):
                          f"{[round(p['nccl'], 3) for p in r['per_rank']]} ms/step a rank)")
         comm_s = ", ".join(f"{op} {c[0] / r['steps']:.2f} calls {c[1] / r['steps'] / 2**20:.3f} "
                            "MiB" for op, c in comm0.items() if c[0])
-        line = (f"[multi] ({tag}) {r['label']}, {backend}: {r['steps']} steps, {r['ms']:.3f} "
+        line = (f"[{tag}] ({t}) {r['label']}, {backend}: {r['steps']} steps, {r['ms']:.3f} "
                 f"ms/step (median of chunks 3+; first two {[round(x, 1) for x in r['first_ms']]}),"
                 f" launches per rank {n_launch} ({key}), collectives per step on rank 0: "
                 f"{comm_s}; peak GiB per rank {[round(p['peak'], 3) for p in r['per_rank']]}; "
                 f"fixed-sample loss {r['before']:.6f} -> {r['after']:.6f}; windows built in "
                 f"{r['windows_s']:.2f} s; {idle}")
         if r["replicas"] is not None:
-            assert r["replicas"], f"({tag}) the replicas parted"
+            assert r["replicas"], f"({t}) the replicas parted"
             line += "; replica checksums equal on every rank after every chunk"
         else:
             gap = abs(r["after"] - r["ref_after"])
             drop = r["before"] - r["ref_after"]
             assert gap <= 0.05 * drop, \
-                f"({tag}) fixed-sample loss {r['after']} vs one rank {r['ref_after']}"
-            line += (f" (routed E {r['E']}); against the one-rank run of the same windows: "
+                f"({t}) fixed-sample loss {r['after']} vs one rank {r['ref_after']}"
+            line += ((f" (routed E {r['E']})" if r["E"] else " (cells padded to each step's "
+                      "largest)") + "; against the one-rank run of the same windows or draws: "
                      f"after step 1 tables within phase 2's tolerance plus the sum-order spread"
                      f", bf16 elements bit-equal on rows with at most one entry, p max |d| "
                      f"{r['step1_err']:.3e}, {r['step1_equal']:.6f} of p bit-equal; after "
@@ -3167,7 +3218,17 @@ def phase_multi_train(steps_scale=1.0):
                      f"{r['ref_after']:.6f} (within 5 % of the drop), p max |d| "
                      f"{r['final_err']:.3e}")
         print(line)
-    return launches, res
+    return launches
+
+
+def _launches_of(per_run, runs):
+    """The launches of ``runs`` in :func:`phase_multi_train`'s result,
+    summed."""
+    out = {}
+    for r in runs:
+        for k, n in per_run[r[0]].items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 
@@ -3300,19 +3361,342 @@ def phase_multi_cli(iters=500, n_frames=20):
     return m
 
 
-def phase_multi(steps_scale=1.0):
+def phase_multi(runs=MULTI_RUNS):
     """Phase 9 ("multi"): K2's row-sharded caller against its plain version
-    and against unsharded K2, the training runs over several ranks, the
-    two-rank batch CLI.  Returns (the shard kernels' JSON entries, the
-    runs' launches summed over ranks)."""
+    and against unsharded K2, the training runs over several ranks (with
+    ``runs`` beyond ``MULTI_RUNS``: phase 10's in the same spawn), the
+    two-rank batch CLI.  Returns (the shard kernels' JSON entries, phase
+    9's runs' launches summed over ranks, every run's launches by tag)."""
     t0 = time.perf_counter()
     rows = phase_shard_kernels()
-    launches, _ = phase_multi_train(steps_scale)
+    per_run = phase_multi_train(runs)
+    launches = _launches_of(per_run, MULTI_RUNS)
     phase_multi_cli()
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
     print(f"[multi] phase 9 took {time.perf_counter() - t0:.1f} s")
-    return rows, launches
+    return rows, launches, per_run
+
+
+# ----------------------------------------------------------------- phase 10
+
+
+def _live_cells(rows_l, g_l, sizes, k, n):
+    """Shard k's entries of a step as a live routing delivers them: per
+    level the found entries whose rows lie in its blocks, from each of n
+    sample ranks (the step's entries cut into n contiguous shares) in entry
+    order, each rank's cell padded to the step's largest cell E (a multiple
+    of 8; pad rows -1, pad gradients NaN: never read).  Returns (per level
+    its (n E,) block rows, the gradients (L n E, D) level-major, per level
+    (local rows, grads) of the real entries)."""
+    import torch
+
+    cells, per = [], []
+    for rows, g, C in zip(rows_l, g_l, sizes):
+        b = C // n
+        r = rows.long()
+        sel = (r // b == k) & (r != C - 1)
+        per.append((r[sel] - k * b, g[sel]))
+        share = -(-r.shape[0] // n)
+        cells.append([((r[s0:s0 + share] - k * b)[sel[s0:s0 + share]],
+                       g[s0:s0 + share][sel[s0:s0 + share]])
+                      for s0 in range(0, r.shape[0], share)])
+    E = max(8, -(-max(c[0].shape[0] for lv in cells for c in lv) // 8) * 8)
+    rows_list, gs = [], []
+    for lv in cells:
+        rr, gg = [], []
+        for r, g in lv:
+            rr.append(torch.cat([r, r.new_full((E - r.shape[0],), -1)]))
+            gg.append(torch.cat([g, g.new_full((E - r.shape[0], g.shape[1]), float("nan"))]))
+        rows_list.append(torch.cat(rr).to(torch.int32).contiguous())
+        gs.append(torch.cat(gg))
+    return rows_list, torch.cat(gs).contiguous(), per
+
+
+def phase_live_shard_kernel(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536,
+                            n=2):
+    """[kernels] K2's row-sharded caller on a live prep (the iid step of
+    row-sharded tables, runs (f) and (i)): for each of 2 shards the entries
+    a live routing delivers it (phase 9's shapes), binned per step by
+    csrc/entry_prep.cu (``entry_prep_shard``: tiles and (row, entry) pairs
+    equal to the sorted ``entry_prep_local``'s, pads excluded and not
+    dropped), then ``fused_adam_shard`` on that prep (not sorted by row:
+    each row's entries summed by the kernel's atomics) against
+    ``fused_adam_shard_plain`` on the same prep: f32 p, m, v within phase
+    2's tolerance plus the sum-order spread, bf16 moments one-ulp ties as
+    phase 2 counts them, rows with at most one entry bit-equal.  Times of
+    the fullest shard: prep, wrapper, kernel alone, plain, the library call
+    (``index_add_`` + fused ``torch.optim.Adam`` over the shard's blocks,
+    the yardstick of the row-sharded f32 row), bound.  Returns (max error,
+    library ms)."""
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    dev = torch.device(DEVICE)
+    D, L = 8, 3
+    sizes = [C] * L
+    n_used = list(ak.used_rows_hint(corners, sizes))
+    lr, bc1, bc2 = 0.01, 1 - 0.9 ** 5, 1 - 0.99 ** 5
+    scales = [1.0, 0.5, 0.25]
+    lrs = [lr * x for x in scales]
+    rng = np.random.default_rng(2)
+    tabs0, rows_l, g_l = _kernel_inputs(rng, sizes, n_used, M, D, dev)
+    b = C // n
+    single = _single_rows(rows_l, sizes, n_used)
+    worst, out = None, 0.0
+    for k in range(n):
+        rows_list, g_loc, per = _live_cells(rows_l, g_l, sizes, k, n)
+        base = ak.shard_row_base([(C, D)] * L, n, k)
+        pre = ak.entry_prep_shard(rows_list, [b] * L, D)
+        glob = torch.cat([torch.where(r >= 0, r.long() + l * b, -1)
+                          for l, r in enumerate(rows_list)])
+        plain_pre = ak.entry_prep_local(glob, [b] * L, D)
+        torch.cuda.synchronize()
+        # the card's prep is binned by atomics (a rehearsal's CPU prep is sorted)
+        assert pre.sorted_by_row == (dev.type == "cpu") and int(pre.dropped) == 0
+        _check_prep(pre, plain_pre, pre.tile_off.shape[0] - 1)
+        loc0 = [[t[k * b:(k + 1) * b].clone() for t in lv] for lv in tabs0]
+        single_k = [x[k * b:(k + 1) * b] for x in single]
+        spread = [[], [], []]
+        for l, (r_l, gg) in enumerate(per):
+            sp = _sum_order_spread([x[l] for x in loc0], r_l, gg, lrs[l], bc1, bc2, b)
+            for t in range(3):
+                spread[t].append(sp[t][0])
+        for variant in ("f32", "bf16m"):
+            md = torch.float32 if variant == "f32" else torch.bfloat16
+            t0 = [loc0[0], [t.to(md) for t in loc0[1]], [t.to(md) for t in loc0[2]]]
+            kw = dict(grads_bf16=variant != "f32")
+            kern = [[t.clone() for t in lv] for lv in t0]
+            ref = [[t.clone() for t in lv] for lv in t0]
+            ak.fused_adam_shard(*kern, None, g_loc, lr, bc1, bc2, scales, base, pre=pre, **kw)
+            ak.fused_adam_shard_plain(*ref, None, g_loc, lr, bc1, bc2, scales, base, pre=pre,
+                                      **kw)
+            torch.cuda.synchronize()
+            if variant == "f32":
+                err = _check_f32(kern, ref, t0, [b] * L, single=single_k, moved_share=None,
+                                 spread=spread)
+            else:
+                sp_b = [[], [], []]
+                for l, (r_l, gg) in enumerate(per):
+                    sp = _sum_order_spread([t0[0][l], t0[1][l].float(), t0[2][l].float()], r_l,
+                                           gg, lrs[l], bc1, bc2, b, grads_bf16=True)
+                    sp_b[0].append(sp[0][0])
+                err = _check_f32(kern[:1], ref[:1], t0[:1], [b] * L, names="p",
+                                 single=single_k, moved_share=None, spread=sp_b[:1])
+                err = max(err, _check_bf16_ties(kern[1:], ref[1:], t0[1:], [b] * L,
+                                                moved_share=None)[0])
+            out = max(out, err)
+            if variant != "f32":
+                continue
+            tim = [[t.clone() for t in lv] for lv in t0]
+
+            def alone():
+                ak._launch("f32", *tim, [g_loc] * L, [0] * L, pre, [b] * L,
+                           [l * b for l in range(L)], lrs, 0.9, 0.99, bc1, bc2, 1e-15, False, 0,
+                           row_base=base)
+
+            m_real = sum(int(r.shape[0]) for r, _ in per)
+            t = dict(k=k, alone=graph_ms(alone),
+                     wrapper=cuda_ms(lambda: ak.fused_adam_shard(*tim, None, g_loc, lr, bc1,
+                                                                 bc2, scales, base, pre=pre)),
+                     prep=cuda_ms(lambda: ak.entry_prep_shard(rows_list, [b] * L, D)),
+                     sorted_prep=cuda_ms(lambda: ak.entry_prep_local(glob, [b] * L, D), iters=5),
+                     plain=cuda_ms(lambda: ak.fused_adam_shard_plain(
+                         *[[x.clone() for x in lv] for lv in t0], None, g_loc, lr, bc1, bc2,
+                         scales, base, pre=pre), iters=3),
+                     library=_library_ms(t0[0], [r for r, _ in per], [g for _, g in per],
+                                         [b] * L, lrs),
+                     m_sh=int(g_loc.shape[0]), m_real=m_real)
+            if worst is None or t["alone"] > worst["alone"]:
+                worst = t
+            del tim
+        del pre, plain_pre, loc0, spread
+        torch.cuda.empty_cache()
+    elems = L * b * D
+    nbytes = 2 * 12 * elems + worst["m_sh"] * (4 + 4 + 4 * D)
+    flops = 13 * elems + worst["m_real"] * D
+    bound = 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS)
+    print(f"[kernels] K2 shard on a live prep (fused_adam_multi_shard, f32 and bf16 moments; "
+          f"{n} shards of {b} rows x {L} levels, cells padded per step): csrc/entry_prep.cu's "
+          f"prep = entry_prep_local's tiles and (row, entry) pairs, pads excluded, none dropped; "
+          f"each shard vs plain on that prep max_abs_err {out:.3e} (f32: phase 2's tolerance "
+          f"plus the sum-order spread; bf16 moments one-ulp ties; single-entry rows bit-equal); "
+          f"fullest shard {worst['k']} ({worst['m_real']} entries in {worst['m_sh']} slots): "
+          f"prep {worst['prep']:.4f} ms (sorted prep {worst['sorted_prep']:.4f}), wrapper "
+          f"{worst['wrapper']:.4f} ms, kernel alone {worst['alone']:.4f} ms, plain "
+          f"{worst['plain']:.4f} ms, library (index_add_ + fused torch.optim.Adam over the "
+          f"blocks) {worst['library']:.4f} ms, bound {bound:.4f} ms (bytes), "
+          f"{bound / worst['alone']:.0%} of bound")
+    return out, worst["library"]
+
+
+def _incre_multi_rank(rank, world, port, backend, cfg, out_path):
+    """One rank of a two-rank incremental CLI run (runs (h), (i)): launch
+    counts zeroed just before the run and read just after; with replicated
+    tables every frame's chunk is followed by a check that the ranks'
+    tables, moments and decoders hold the same bits, and every importance
+    sweep by one that their importance tables do.  Rank 0 saves its run
+    path, the checks and every rank's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from shine_mapping_tpu_torch.cli import shine_incre
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.parallel import mesh
+    from shine_mapping_tpu_torch.train import trainer
+
+    grp = _join_ranks(rank, world, port, backend)
+    cfg.device = str(grp.device)
+    checks = {"replicas": [], "importance": []}
+    inner_train, inner_imp = trainer.train_chunk, shine_incre.cal_feature_importance
+
+    def train(*a, **kw):
+        params, opt, aux = inner_train(*a, **kw)
+        if grp.table_sharding == "replicated":
+            checks["replicas"].append(mesh.replicas_equal(grp, mesh.state_tensors(params, opt)))
+        return params, opt, aux
+
+    def imp(grid, *a, **kw):
+        inner_imp(grid, *a, **kw)
+        checks["importance"].append(mesh.replicas_equal(grp, grid.importance_weight))
+
+    trainer.train_chunk, shine_incre.cal_feature_importance = train, imp
+    if cfg.batch_windows:
+        shine_incre.PRECOMPUTE_WORK_RATIO = 0.0
+    ak.reset_launch_counts()  # this path starts here
+    t0 = time.perf_counter()
+    run_path, _, _ = shine_incre.run_shine_mapping_incremental(cfg=cfg, group=grp)
+    counts = dict(ak.LAUNCHES)  # read right after the path
+    wall = time.perf_counter() - t0
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, counts)
+    if rank == 0:
+        torch.save(dict(run_path=run_path, wall=wall, launches=per_rank, **checks), out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _incre_one_rank(run, world, out, gt_path, n_frames, rows=False):
+    """The one-rank run of ``run``'s config at these frames (the two-rank
+    runs' yardstick): (F-score, metrics records)."""
+    from shine_mapping_tpu_torch.cli import shine_incre
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+
+    cfg, _ = incre_config(SHINEConfig, run, world, out, n_frames, DEVICE)
+    ratio = shine_incre.PRECOMPUTE_WORK_RATIO
+    if run[3]:
+        shine_incre.PRECOMPUTE_WORK_RATIO = 0.0
+    try:
+        run_path, _, _ = shine_incre.run_shine_mapping_incremental(cfg=cfg)
+    finally:
+        shine_incre.PRECOMPUTE_WORK_RATIO = ratio
+    m = eval_mesh(os.path.join(run_path, f"mesh/mesh_frame_{n_frames}.ply"), gt_path, **EVAL_KW)
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        return m["F-score (%)"], [json.loads(line) for line in f]
+
+
+def phase_incre_multi_cli(n_frames=5, n_az=1024, n_el=64):
+    """Runs (h) and (i): the incremental CLI over two ranks on phase 7's
+    world (two gloo ranks on one card, or NCCL one rank a card), (h) run E's
+    config (replicated tables, the reg on per-frame fused windows, bf16
+    moments, K2), (i) run C's with ``table_sharding: rows`` (the reg folded
+    by the rows' ranks, iid batches routed live, K2's row-sharded caller on
+    a live prep).  Each against the one-rank run of its config over the
+    same frames.  Returns the launches summed over both runs' ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+    from shine_mapping_tpu_torch.parallel import mesh
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    runs = (("h", "run E's config, replicated tables", INCRE_RUNS[2], {}),
+            ("i", "run C's config, row-sharded tables (iid, live routing)", INCRE_RUNS[0],
+             {"table_sharding": "rows"}))
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="smoke_incre_multi_") as tmp:
+        world = os.path.join(tmp, "world")
+        _, gt_path = write_synth_sequence(world, n_frames, n_az, n_el)
+        for tag, what, run, extra in runs:
+            cfg, line = incre_config(SHINEConfig, run, world, os.path.join(tmp, tag), n_frames,
+                                     DEVICE)
+            print(line.replace("[incre]", f"[incre-multi] ({tag})")
+                  + (f"; tpu: {extra}" if extra else "") + "; 2 ranks")
+            for k, v in extra.items():
+                setattr(cfg, k, v)
+            out = os.path.join(tmp, tag + ".pt")
+            mp.start_processes(_incre_multi_rank, args=(2, mesh.free_port(), backend, cfg, out),
+                               nprocs=2, start_method="spawn", join=True)
+            got = torch.load(out, weights_only=False)
+            key, per_step = run[4], run[5]
+            if extra.get("table_sharding") == "rows":
+                key, per_step = "fused_adam_multi_shard", 1  # and one live prep a step
+            steps = n_frames * cfg.iters
+            for c in got["launches"]:
+                assert c[key] == steps * per_step, f"({tag}) {c[key]} {key} launches a rank"
+                if key == "fused_adam_multi_shard":
+                    assert c["entry_prep"] == steps, f"({tag}) {c['entry_prep']} preps a rank"
+                others = {k: x for k, x in c.items() if k not in (key, "entry_prep") and x}
+                assert not others, f"({tag}) other kernels launched: {others}"
+                for k, x in c.items():
+                    launches[k] = launches.get(k, 0) + x
+            assert got["importance"] == [True] * n_frames, f"({tag}) the importance parted"
+            if extra.get("table_sharding") != "rows":
+                assert got["replicas"] == [True] * n_frames, f"({tag}) the replicas parted"
+            with open(os.path.join(got["run_path"], "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            assert len(recs) == n_frames and all(np.isfinite(r["loss/total_loss"]) for r in recs)
+            assert all(r["loss/reg_loss"] > 0 for r in recs[1:]), f"({tag}) no reg after frame 0"
+            m = eval_mesh(os.path.join(got["run_path"], f"mesh/mesh_frame_{n_frames}.ply"),
+                          gt_path, **EVAL_KW)
+            f1, recs1 = _incre_one_rank(run, world, os.path.join(tmp, tag + "1"), gt_path,
+                                        n_frames)
+            ms = float(np.median([(r["timing(s)/mapping"] - r["timing(s)/importance"])
+                                  / cfg.iters for r in recs[1:]])) * 1e3
+            ms1 = float(np.median([(r["timing(s)/mapping"] - r["timing(s)/importance"])
+                                   / cfg.iters for r in recs1[1:]])) * 1e3
+            med = {k: float(np.median([r[f"timing(s)/{k}"] for r in recs]))
+                   for k in ("preprocess", "mapping", "importance")}
+            gap = abs(m["F-score (%)"] - f1)
+            print(f"[incre-multi] ({tag}) {what}, 2 ranks over {backend}: {n_frames} frames x "
+                  f"{cfg.iters} steps, {got['launches'][0][key]} {key} launches a rank"
+                  + (f" and {got['launches'][0]['entry_prep']} live preps"
+                     if key == "fused_adam_multi_shard" else "")
+                  + f"; run {got['wall']:.1f} s; per frame (median) preprocess "
+                  f"{med['preprocess']:.3f} s, mapping {med['mapping']:.3f} s (training {ms:.3f} "
+                  f"ms/step; one rank {ms1:.3f}), importance {med['importance']:.3f} s; reg_loss "
+                  f"{recs[1]['loss/reg_loss']:.4g} -> {recs[-1]['loss/reg_loss']:.4g}; "
+                  + ("replicas bit-identical after every frame; " if tag == "h" else "")
+                  + f"importance bit-identical on both ranks after every sweep; eval_mesh "
+                  f"F-score {m['F-score (%)']:.3f} %, Chamfer-L1 {m['Chamfer_L1 (m)']:.4f} m; "
+                  f"the one-rank run {f1:.3f} % ({gap:.3f} points; bar 5)")
+            assert gap < 5.0, f"({tag}) two ranks {gap:.3f} points from one rank"
+    return launches
+
+
+def phase_incre_multi(per_run=None):
+    """Phase 10 ("incre-multi"): K2's row-sharded caller on a live prep,
+    runs (f) and (g) (row-sharded tables on iid batches; ``per_run``: their
+    launches where phase 9's spawn ran them), runs (h) and (i) (the
+    incremental CLI over two ranks).  Returns (the live check's max error,
+    the library ms of the row-sharded f32 row, the launches of the runs
+    summed over their ranks)."""
+    t0 = time.perf_counter()
+    err, lib_ms = phase_live_shard_kernel()
+    if per_run is None:
+        per_run = phase_multi_train(ROWS_IID_RUNS)
+    launches = _launches_of(per_run, ROWS_IID_RUNS)
+    for k, x in phase_incre_multi_cli().items():
+        launches[k] = launches.get(k, 0) + x
+    print(f"[incre-multi] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return err, lib_ms, launches
 
 
 # ----------------------------------------------------------------- main
@@ -3322,7 +3706,8 @@ def phase_multi(steps_scale=1.0):
 # smoke itself is the run with no arguments)
 ALONE = {"agreement": lambda: (phase_agreement(), phase_agreement_options()),
          "map": lambda: phase_map(), "incre": lambda: phase_incre(),
-         "city": lambda: phase_city(), "multi": lambda: phase_multi()}
+         "city": lambda: phase_city(), "multi": lambda: phase_multi(),
+         "incre-multi": lambda: phase_incre_multi()}
 
 
 def main() -> int:
@@ -3361,12 +3746,18 @@ def main() -> int:
     map_launches = phase_map()
     incre_launches = phase_incre()
     city_launches, _ = phase_city()
-    shard_rows, multi_launches = phase_multi()
+    # phase 10's runs (f) and (g) train in phase 9's spawn, on its bench world
+    shard_rows, multi_launches, per_run = phase_multi(MULTI_RUNS + ROWS_IID_RUNS)
+    _, shard_lib_ms, live_launches = phase_incre_multi(per_run)
     for k in kernels:  # K1/K2: counted over the training runs and the CLI runs
         k["launches"] = (launches[k["name"]] + map_launches.get(k["name"], 0)
                          + incre_launches.get(k["name"], 0) + city_launches.get(k["name"], 0)
-                         + multi_launches.get(k["name"], 0))
-    kernels += shard_rows  # K2's row-sharded caller: counted over phase 9's runs
+                         + multi_launches.get(k["name"], 0) + live_launches.get(k["name"], 0))
+    for r in shard_rows:  # K2's row-sharded caller: counted over phases 9 and 10's runs
+        r["launches"] += live_launches.get(r["name"], 0)
+        if r["variant"] == "f32":
+            r["library_ms"] = shard_lib_ms
+    kernels += shard_rows
     kernels += study  # K3-K7: counted over the kernel-study programs
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} never launched on its path"

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Which collectives of the gloo backend take CUDA tensors, in this torch.
 
-    python3 scripts/probe_gloo_cuda.py [--ranks 2]
+    python3 scripts/probe_gloo_cuda.py [--ranks 2] [--backend gloo|nccl]
 
 Spawns ``--ranks`` processes on card 0 (gloo allows several ranks on one
-card, NCCL does not), joins them over ``tcp://localhost:<free port>`` and
-tries each collective the port's ``parallel/comm.py`` uses on small CUDA
-tensors.  Rank 0 prints one line per collective: ``native`` (the result is
-right), or the error's first line.  ``parallel/comm.py`` stages the ops
-that are not native through host memory when the group is gloo.
+card; with ``--backend nccl`` one rank a card, which needs that many
+cards), joins them over ``tcp://localhost:<free port>`` and tries each
+collective the port's ``parallel/comm.py`` uses on small CUDA tensors, and
+the two forms of an exchange with uneven counts: ``all_to_all_single`` with
+uneven split sizes, and the counts gathered then every cell padded to the
+largest for an equal-split ``all_to_all_single`` (``comm.uneven_block``).
+Rank 0 prints one line per collective: ``native`` (the result is right),
+or the error's first line.
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _body(rank: int, world: int, port: int) -> None:
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+def _body(rank: int, world: int, port: int, backend: str = "gloo") -> None:
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
     n = 4
     results = {}
 
@@ -72,6 +76,35 @@ def _body(rank: int, world: int, port: int) -> None:
                           for k in range(world)]).to(torch.bfloat16)
         return bool((out == want).all())
 
+    def _uneven(k):  # rank k sends rank d (d + 1) * (k + 1) values of 100 k + d
+        return [torch.full(((d + 1) * (k + 1),), float(100 * k + d), device=dev)
+                for d in range(world)]
+
+    def all_to_all_single_uneven():
+        parts = _uneven(rank)
+        out = torch.empty(sum((rank + 1) * (k + 1) for k in range(world)), device=dev)
+        dist.all_to_all_single(out, torch.cat(parts),
+                               output_split_sizes=[(rank + 1) * (k + 1) for k in range(world)],
+                               input_split_sizes=[p.numel() for p in parts])
+        want = torch.cat([_uneven(k)[rank] for k in range(world)])
+        return bool((out == want).all())
+
+    def uneven_padded():
+        parts = _uneven(rank)
+        counts = torch.tensor([p.numel() for p in parts], device=dev)
+        every = torch.empty(world * world, dtype=counts.dtype, device=dev)
+        dist.all_gather_into_tensor(every, counts)
+        E = int(every.max())  # the one host read
+        buf = torch.full((world, E), float("nan"), device=dev)
+        for d, p in enumerate(parts):
+            buf[d, :p.numel()] = p
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf)
+        n_in = every.reshape(world, world)[:, rank]
+        got = torch.cat([out[k, :int(n_in[k])] for k in range(world)])
+        want = torch.cat([_uneven(k)[rank] for k in range(world)])
+        return bool((got == want).all())
+
     def broadcast():
         t = torch.full((n,), float(rank), device=dev)
         dist.broadcast(t, 0)
@@ -81,22 +114,26 @@ def _body(rank: int, world: int, port: int) -> None:
                      ("all_gather_into_tensor", all_gather_into_tensor),
                      ("all_gather", all_gather), ("all_to_all_single", all_to_all_single),
                      ("all_to_all_single bf16", all_to_all_single_bf16),
+                     ("all_to_all_single uneven splits", all_to_all_single_uneven),
+                     ("counts gathered, cells padded to the largest, all_to_all_single",
+                      uneven_padded),
                      ("broadcast", broadcast)):
         attempt(name, fn)
         dist.barrier()
     if rank == 0:
-        print(f"torch {torch.__version__} cuda {torch.version.cuda}, gloo, {world} ranks "
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}, {backend}, {world} ranks "
               f"on {torch.cuda.get_device_name(0)}")
         for name, r in results.items():
-            print(f"[gloo-cuda] {name}: {r}")
+            print(f"[{backend}-cuda] {name}: {r}")
     dist.destroy_process_group()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     a = ap.parse_args()
-    mp.start_processes(_body, args=(a.ranks, _free_port()), nprocs=a.ranks,
+    mp.start_processes(_body, args=(a.ranks, _free_port(), a.backend), nprocs=a.ranks,
                        start_method="spawn", join=True)
 
 

@@ -24,12 +24,14 @@ cards, else gloo on the cards there are, or gloo on the CPU), and
 ``RANK`` / ``WORLD_SIZE`` join ranks launched apart.  Each rank preprocesses
 its share of the frames (``tpu.shard_ingest``) and trains its share of each
 batch; ``tpu.table_sharding: replicated`` keeps the whole tables on every
-rank, ``rows`` a row block of each (with routed fused windows, K2's
-row-sharded caller).  The ranks share the meshing's queries.  Rank 0 alone
-writes the run directory: checkpoints, meshes, ``metrics.jsonl``.  Not
-ported yet (raise NotImplementedError naming their ROADMAP item):
-row-sharded tables without routed windows (Queue A item 14b); the
-visualizer (``o3d_vis_on``, item 15).
+rank, ``rows`` a row block of each: on routed fused windows through K2's
+row-sharded caller, else on iid batches whose entries route live each step
+(``feature_update: fused`` through the same kernel; ``sparse``, ``dense``
+and SGD summing the routed entries by row).  ``pallas`` on rows without
+routed windows is refused, as in the JAX driver.  The ranks share the
+meshing's queries.  Rank 0 alone writes the run directory: checkpoints,
+meshes, ``metrics.jsonl``.  Not ported yet (raises NotImplementedError
+naming its ROADMAP item): the visualizer (``o3d_vis_on``, item 15).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_batch <config.yaml>
@@ -38,7 +40,6 @@ Usage:
 
 from __future__ import annotations
 
-import os
 import sys
 import threading
 import time
@@ -62,10 +63,13 @@ from .common import (
     build_grid,
     check_supported,
     event_boundaries,
+    join_ranks,
     maybe_load_model,
     pad_opt_state_features,
     pool_capacity_for,
     seed_for,
+    spawn_ranks,
+    spawns_ranks,
     sync_features_to_grid,
     torch_device_of,
 )
@@ -94,41 +98,6 @@ class _Staged:
         return self._out
 
 
-def _rank_entry(rank: int, world: int, port: int, cfg: SHINEConfig, config_path,
-                backend, out_file: str) -> None:
-    """One spawned rank of a ``tpu.mesh_shape: n`` launch."""
-    device = pmesh.rank_device(cfg, rank)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    pmesh.setup_distributed(cfg, backend, f"tcp://localhost:{port}", rank, world)
-    try:
-        run_path, _, _ = run_shine_mapping_batch(config_path, cfg, group=pmesh.data_group(device))
-        if rank == 0:
-            with open(out_file, "w") as f:
-                f.write(run_path)
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def _spawn_ranks(cfg: SHINEConfig, config_path, backend):
-    """Run the driver on ``tpu.mesh_shape`` spawned ranks; rank 0's run
-    directory (the others' artifacts are rank 0's)."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    n = int(cfg.mesh_shape)
-    if backend is None:
-        cuda = torch.device(cfg.device).type == "cuda"
-        backend = "nccl" if cuda and torch.cuda.device_count() >= n else "gloo"
-    with tempfile.TemporaryDirectory() as tmp:
-        out = f"{tmp}/run_path"
-        mp.start_processes(_rank_entry, args=(n, pmesh.free_port(), cfg, config_path, backend,
-                                              out), nprocs=n, start_method="spawn", join=True)
-        with open(out) as f:
-            return f.read()
-
-
 def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | None = None,
                             group=None, backend: str | None = None):
     """Run the batch pipeline; returns (run_path, grid, params).
@@ -145,17 +114,11 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                      "Try: python -m shine_mapping_tpu_torch.cli.shine_batch xxx_config.yaml")
         cfg = SHINEConfig().load(config_path)
     torch_device_of(cfg)  # raises here when the card is asked for and absent
-    check_supported(cfg, several_ranks=True)
+    check_supported(cfg)
     if group is None:
-        if cfg.mesh_shape > 1 and cfg.num_processes <= 1 and "WORLD_SIZE" not in os.environ:
-            return _spawn_ranks(cfg, config_path, backend), None, None
-        rank, world = pmesh.setup_distributed(cfg, backend)
-        if world > 1:
-            local = int(os.environ.get("LOCAL_RANK", rank))
-            device = pmesh.rank_device(cfg, local)
-            if device.type == "cuda":
-                torch.cuda.set_device(device)
-            group = pmesh.data_group(device)
+        if spawns_ranks(cfg):
+            return spawn_ranks(run_shine_mapping_batch, cfg, config_path, backend), None, None
+        group = join_ranks(cfg, backend)
     if group is not None and group.world == 1:
         group = None
     device = torch_device_of(cfg) if group is None else group.device
@@ -254,17 +217,17 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         say("tpu.batch_windows requested but prerequisites unmet "
             "(needs the pallas update, point loss, no consistency, "
             "precompute_lookups) — falling back to iid batches")
-    # row-sharded tables train through routed fused windows: each rank
-    # gathers and updates its row blocks (K2's row-sharded caller)
+    # row-sharded tables train through routed fused windows (each rank
+    # gathers and updates its row blocks, K2's row-sharded caller) where
+    # they can run, else on iid batches routed live each step (fused:
+    # the same kernel; sparse, dense, sgd: the routed entries summed by row)
     rows = group is not None and cfg.table_sharding == "rows"
-    n_shards = group.world if rows else 0
-    if rows and not (use_windows and use_winx
-                     and trainer.shard_windows_ok(settings, feat_shapes, n_shards)):
-        raise NotImplementedError(
-            "not ported yet, see ROADMAP.md: row-sharded tables without routed windows "
-            "(Queue A item 14b); table_sharding: rows needs batch_windows + windows_fused, "
-            "precompute_lookups, the pallas update and tables and a batch that split evenly "
-            f"over {group.world} ranks")
+    if rows and use_windows and not (use_winx and trainer.shard_windows_ok(
+            settings, feat_shapes, group.world)):
+        say("row-sharded tables: routed windows need the fused layout and tables and a "
+            f"batch that split evenly over {group.world} ranks — training on iid batches")
+        use_windows = False
+    n_shards = group.world if rows and use_windows else 0
     # device-memory guard: the windows live for the whole run beside the map
     # and the pool (with rotation also the staged next pool); the estimate
     # is the per-level layout's, which holds at least the fused one's bytes,

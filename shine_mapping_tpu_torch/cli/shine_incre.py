@@ -1,4 +1,4 @@
-"""Incremental (online) mapping driver on one card.
+"""Incremental (online) mapping driver, on one card or several.
 
 Port of ``shine_mapping_tpu/cli/shine_incre.py`` (reference
 shine_incre.py:22-247).  Per frame: grow the map (with last-frame snapshots
@@ -16,13 +16,25 @@ when ``tpu.batch_windows`` and ``windows_fused`` ask for them and they fit
 ``windows_hbm_budget_gb``, bf16 moments only where the resolved update is
 ``pallas``.  ``tpu.params_bf16`` is not read, as in the JAX driver.
 
-Every single-card update mode runs, ``feature_update: sparse`` with the
-reg among them.  Not ported yet (raise NotImplementedError naming their
-ROADMAP item): runs over several ranks (Queue A item 14a; the batch
-driver has them); the visualizer (``o3d_vis_on``, item 15).
+Several ranks (JAX shine_incre.py:64-66, :128-178): ``tpu.mesh_shape: n``
+spawns n ranks, ``tpu.num_processes`` or torchrun's environment joins ranks
+launched apart (``cli.common.spawn_ranks`` / ``join_ranks``, as the batch
+driver).  Every rank processes every frame and trains its share of each
+batch.  Per frame the grown tables, a fresh Adam state and the shadow
+tables are placed again (``parallel.mesh.place_training_state``):
+``tpu.table_sharding: replicated`` keeps them whole (pool lookups and fused
+windows as on one card, their preps sorted for the update's deterministic
+sum), ``rows`` cuts each rank's row blocks again, which train on iid
+batches routed live each step (no windows, as in JAX) and are gathered
+whole after the frame.  The importance sweep splits its batches over the
+ranks, the meshing its queries; rank 0 alone writes ``metrics.jsonl``,
+the meshes and ``model_final.npz``.  Not ported yet (raises
+NotImplementedError naming its ROADMAP item): the visualizer
+(``o3d_vis_on``, item 15).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_incre <config.yaml>
+    torchrun --nproc_per_node 2 -m shine_mapping_tpu_torch.cli.shine_incre <config.yaml>
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ import torch
 from ..config import SHINEConfig
 from ..data.dataset import LiDARDataset
 from ..mesher import Mesher
+from ..parallel import comm
+from ..parallel import mesh as pmesh
 from ..train import trainer
 from ..train.importance import cal_feature_importance
 from ..train.optimizer import FEATURES, init_opt_state
@@ -46,10 +60,13 @@ from ..utils.profiling import HbmMonitor
 from .common import (
     build_grid,
     check_supported,
+    join_ranks,
     maybe_load_model,
     pool_capacity_for,
     refresh_params_features,
     seed_for,
+    spawn_ranks,
+    spawns_ranks,
     sync_features_to_grid,
     torch_device_of,
 )
@@ -61,8 +78,16 @@ PRECOMPUTE_WORK_RATIO = 4.0
 
 
 def run_shine_mapping_incremental(config_path: str | None = None,
-                                  cfg: SHINEConfig | None = None):
-    """Run the incremental pipeline; returns (run_path, grid, params)."""
+                                  cfg: SHINEConfig | None = None, group=None,
+                                  backend: str | None = None):
+    """Run the incremental pipeline; returns (run_path, grid, params).
+
+    ``group``: this rank's ``parallel.mesh.DataGroup`` when the caller
+    joined the ranks.  Otherwise ``tpu.mesh_shape`` > 1 spawns that many
+    ranks and returns (rank 0's run_path, None, None), with ``backend``
+    (``nccl`` / ``gloo``; by default NCCL when each rank has a card, else
+    gloo); and ``tpu.num_processes`` or torchrun's environment join this
+    process to its ranks."""
     if cfg is None:
         if config_path is None:
             sys.exit("Please provide the path to the config file.\n"
@@ -70,9 +95,27 @@ def run_shine_mapping_incremental(config_path: str | None = None,
         cfg = SHINEConfig().load(config_path)
     device = torch_device_of(cfg)
     check_supported(cfg)
+    if group is None:
+        if spawns_ranks(cfg):
+            return (spawn_ranks(run_shine_mapping_incremental, cfg, config_path, backend),
+                    None, None)
+        group = join_ranks(cfg, backend)
+    if group is not None and group.world == 1:
+        group = None
+    dp = group is not None
+    if dp:
+        device = group.device
+    primary = not dp or group.primary
+    rows = dp and cfg.table_sharding == "rows"
+    say = print if primary else (lambda *a, **k: None)
+    if dp:
+        say(f"{group.world} ranks over {group.backend} (tables {cfg.table_sharding})")
 
-    run_path = setup_experiment(cfg, config_path)
-    logger = MetricsLogger(run_path, cfg.wandb_vis_on, run_name=cfg.name)
+    if primary:
+        run_path = setup_experiment(cfg, config_path)
+    if dp:  # the others take rank 0's run directory
+        run_path = comm.gather_bytes(group, run_path.encode() if primary else b"")[0].decode()
+    logger = MetricsLogger(run_path, cfg.wandb_vis_on, run_name=cfg.name) if primary else None
 
     grid = build_grid(cfg)
     # the optimizer is rebuilt every frame, so only the map and decoders of
@@ -85,9 +128,12 @@ def run_shine_mapping_incremental(config_path: str | None = None,
         params.update(loaded_decoders)
     reg = cfg.continual_learning_reg
     if reg:
-        cfg.loss_reduction = "sum"  # shine_incre.py:77-78
+        # shine_incre.py:77-78; over several ranks each rank's part of the
+        # sum is added, never divided by the world
+        cfg.loss_reduction = "sum"
 
-    mesher = Mesher(cfg, grid, params["geo"], params["sem"])
+    # the ranks share the meshing's queries; rank 0 marches and writes
+    mesher = Mesher(cfg, grid, params["geo"], params["sem"], group=group)
     mesher.global_transform = np.linalg.inv(dataset.begin_pose_inv)
 
     total_iter = 0
@@ -95,7 +141,7 @@ def run_shine_mapping_incremental(config_path: str | None = None,
     profiling.last_hbm_monitor = hbm
     for processed_frame, frame_id in enumerate(dataset.frame_ids()):
         if processed_frame == cfg.freeze_after_frame and not freeze:
-            print("Freeze the decoder")
+            say("Freeze the decoder")
             freeze = True
 
         T0 = get_time(device)
@@ -110,11 +156,12 @@ def run_shine_mapping_incremental(config_path: str | None = None,
                                                    settings=settings)
 
         # the window decision comes before the optimizer: fused windows keep
-        # the kernel update under reg, which is what bf16 moments need
+        # the kernel update under reg, which is what bf16 moments need;
+        # row-sharded tables train on iid batches (JAX shine_incre.py:141)
         use_pre = (cfg.precompute_lookups
                    and cfg.iters * cfg.bs >= PRECOMPUTE_WORK_RATIO * capacity
                    and trainer.resolve_feature_update(settings) in ("fused", "pallas"))
-        use_winx = (use_pre and cfg.batch_windows and cfg.windows_fused
+        use_winx = (use_pre and cfg.batch_windows and cfg.windows_fused and not rows
                     and trainer.batch_windows_ok(settings, feat_shapes, fused=True)
                     and trainer.estimate_windows_bytes(n_valid, settings, feat_shapes,
                                                        reg_cover=reg)
@@ -126,6 +173,11 @@ def run_shine_mapping_incremental(config_path: str | None = None,
         # training never writes it)
         shadow = ({"importance": list(grid.importance_weight),
                    "last_frame": list(grid.features_last_frame)} if reg else None)
+        if dp:
+            # the grown tables, fresh moments and shadow placed again (rows:
+            # each rank's blocks of the doubled capacities cut anew)
+            params, opt_state, shadow = pmesh.place_training_state(
+                group, params, opt_state, shadow, table_sharding=cfg.table_sharding)
 
         pre_lookups = batch_windows = None
         if use_pre:
@@ -135,18 +187,18 @@ def run_shine_mapping_incremental(config_path: str | None = None,
                 batch_windows = trainer.precompute_batch_windows(
                     pre_lookups, n_valid,
                     torch.Generator(device).manual_seed(seed_for(cfg.seed, frame_id, 0x5157)),
-                    settings, feat_shapes, fused=True, reg_cover=reg)
+                    settings, feat_shapes, fused=True, reg_cover=reg, deterministic=dp)
                 if processed_frame == 0:
-                    print(f"per-frame fused epoch windows on ({batch_windows.n_windows} "
-                          "windows)" + (" with reg fold" if reg else ""))
+                    say(f"per-frame fused epoch windows on ({batch_windows.n_windows} "
+                        "windows)" + (" with reg fold" if reg else ""))
         T1 = get_time(device)
         gen = torch.Generator(device).manual_seed(seed_for(cfg.seed, frame_id))
         params, opt_state, aux = trainer.train_chunk(
             params, opt_state, grid.tables, dev_pool, n_valid, 0, gen, settings, cfg.iters,
-            pre_lookups=pre_lookups, batch_windows=batch_windows, shadow=shadow)
+            group=group, pre_lookups=pre_lookups, batch_windows=batch_windows, shadow=shadow)
         total_iter += cfg.iters
         hbm.sample("train")
-        sync_features_to_grid(grid, params)
+        sync_features_to_grid(grid, params, group)  # rows: the blocks gathered whole
 
         T_imp = get_time(device)
         if reg:
@@ -154,12 +206,12 @@ def run_shine_mapping_incremental(config_path: str | None = None,
                 grid, params["geo"], dev_pool["coord"][:n_valid],
                 dev_pool["sdf_label"][:n_valid], sigma=settings.sigma_sigmoid, bs=cfg.bs,
                 down_rate=cfg.cal_importance_weight_down_rate,
-                loss_reduction=cfg.loss_reduction)
+                loss_reduction=cfg.loss_reduction, group=group)
             hbm.sample("importance")
         T2 = get_time(device)
 
         if processed_frame == 0 or (processed_frame + 1) % cfg.mesh_freq_frame == 0:
-            print("Begin mesh reconstruction from the implicit map")
+            say("Begin mesh reconstruction from the implicit map")
             mesh_path = f"{run_path}/mesh/mesh_frame_{frame_id + 1}.ply"
             map_path = f"{run_path}/map/sdf_map_frame_{frame_id + 1}.ply"
             if cfg.mc_with_octree:
@@ -183,15 +235,17 @@ def run_shine_mapping_incremental(config_path: str | None = None,
             "timing(s)/reconstruct": T3 - T2,
             "hbm/peak_live_gb": round(hbm.peak_live / 2**30, 3),
         })
-        logger.log(rec)
-        print(f"frame {frame_id}: loss {rec['loss/total_loss']:.4f} "
-              f"pre {T1 - T0:.2f}s map {T2 - T1:.2f}s recon {T3 - T2:.2f}s")
+        if logger is not None:
+            logger.log(rec)
+        say(f"frame {frame_id}: loss {rec['loss/total_loss']:.4f} "
+            f"pre {T1 - T0:.2f}s map {T2 - T1:.2f}s recon {T3 - T2:.2f}s")
 
-    sync_features_to_grid(grid, params)
+    # the grid holds the last frame's trained tables (synced after its chunk)
     ckpt.save_checkpoint(f"{run_path}/model/model_final.npz", grid, params,
-                         init_opt_state(params), total_iter)
-    print(f"peak device memory: {hbm.report()['peak_live_gb']} GiB")
-    logger.close()
+                         init_opt_state(params), total_iter, group)
+    say(f"peak device memory: {hbm.report()['peak_live_gb']} GiB")
+    if logger is not None:
+        logger.close()
     return run_path, grid, params
 
 

@@ -287,8 +287,10 @@ def entry_prep_stack_plain(rows_list, sizes, n_used, tb: int) -> EntryPrep:
                      tuple(int(c) for c in sizes), tuple(int(n) for n in n_used), tb, True)
 
 
-def _prep_launch(rows_list, sizes, n_used, tb) -> EntryPrep:
-    """csrc/entry_prep.cu on CUDA rows (counted under ``entry_prep``)."""
+def _prep_launch(rows_list, sizes, n_used, tb, trash=None) -> EntryPrep:
+    """csrc/entry_prep.cu on CUDA rows (counted under ``entry_prep``).
+    ``trash``: per level the row count whose last row is the excluded
+    trashbin (default ``sizes``; 0 makes the pad row -1 the excluded one)."""
     lib = cuda_build.load("entry_prep")
     fn = lib.entry_prep
     if fn.argtypes is None:
@@ -323,7 +325,8 @@ def _prep_launch(rows_list, sizes, n_used, tb) -> EntryPrep:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn((ctypes.c_void_p * L)(*[r.data_ptr() for r in rows]), rows64,
                  (ctypes.c_longlong * (L + 1))(*ent_off), L,
-                 (ctypes.c_longlong * L)(*sizes), (ctypes.c_longlong * L)(*n_used),
+                 (ctypes.c_longlong * L)(*(sizes if trash is None else trash)),
+                 (ctypes.c_longlong * L)(*n_used),
                  (ctypes.c_longlong * L)(*row_off), (ctypes.c_int * L)(*tile_lo), tb, T, W,
                  counts.data_ptr(), rank.data_ptr(), tile_off.data_ptr(),
                  rows_out.data_ptr(), order.data_ptr(), dropped.data_ptr(), stream)
@@ -732,6 +735,40 @@ def entry_prep_local(rows_loc: torch.Tensor, sizes_loc: Sequence[int], dim: int)
     return EntryPrep(rows_s.reshape(*lead, -1).contiguous(),
                      order.to(torch.int32).reshape(*lead, -1), tile_off.reshape(*lead, T1),
                      dropped.reshape(lead), sizes, sizes, tb, True)
+
+
+def entry_prep_shard(rows_list: Sequence[torch.Tensor], sizes_loc: Sequence[int],
+                     dim: int) -> EntryPrep:
+    """The :class:`EntryPrep` of the entries a row shard receives in a live
+    routing step (iid batches on row-sharded tables): ``rows_list[l]``
+    level l's entries' rows in the shard's block of that level, -1 for a
+    pad slot; entry i is the levels' entries concatenated (the order of
+    :func:`fused_adam_shard`'s ``g_loc``).  Every row of every block is
+    covered (no used head).  No block holds a trashbin row (the whole
+    table's last row is a miss's, and misses do not route), so the pads
+    alone are excluded, and they do not count as dropped.  On CUDA tensors
+    one launch of csrc/entry_prep.cu, built per step (the windows' sorted
+    :func:`entry_prep_local` costs a sort chain an iid step would pay
+    every step); not sorted by row.  On CPU tensors
+    :func:`entry_prep_local` of the rows in the blocks concatenated."""
+    sizes = tuple(int(c) for c in sizes_loc)
+    if len(rows_list) != len(sizes):
+        raise ValueError("one rows tensor per level")
+    device = rows_list[0].device
+    if device.type == "cpu":
+        off, glob = 0, []
+        for r, C in zip(rows_list, sizes):
+            r = r.reshape(-1).to(torch.int64)
+            glob.append(torch.where(r >= 0, r + off, -1))
+            off += C
+        return entry_prep_local(torch.cat(glob), sizes, dim)
+    if device.type != "cuda":
+        raise ValueError(f"entry_prep_shard runs on cuda (or cpu), not {device}")
+    if sum(sizes) >= _SENTINEL:
+        raise ValueError("shards of 2**31 - 1 rows or more are not supported")
+    pre = _prep_launch([r.reshape(1, -1) for r in rows_list], sizes, sizes, tile_rows(dim),
+                       trash=[0] * len(sizes))
+    return window_prep(pre, 0)
 
 
 def _shard_args(ps, ms, vs, rows_loc, g_loc, lr, lr_scales, row_base, pre):

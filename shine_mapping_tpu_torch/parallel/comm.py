@@ -11,6 +11,10 @@ loss aux, the touched rows of the lazy update).
   replicated kernel island's entries, the checksums);
 * :func:`all_to_all` — equal blocks exchanged (the routed layout's served
   rows forward and entry gradients back);
+* :func:`uneven_block` — every rank's cell counts and the block that holds
+  the largest cell: an exchange with uneven counts (the live routing of
+  iid steps on row-sharded tables) pads each cell to it and goes through
+  :func:`all_to_all`;
 * :func:`sum_across` — the rank-order sum of same-shaped tensors (the
   decoders' gradients, the loss aux);
 * :func:`gather_bytes` — one byte string per rank over the gloo side group
@@ -22,7 +26,11 @@ loss aux, the touched rows of the lazy update).
 
 gloo takes CUDA tensors in every collective used here
 (``scripts/probe_gloo_cuda.py``: native in torch 2.11 with CUDA 12.8), so
-nothing is staged through host memory; an op that fails raises.
+nothing is staged through host memory; an op that fails raises.  Uneven
+exchanges go as equal blocks padded to the step's largest cell
+(:func:`uneven_block`): one gather of the counts and one host read a step,
+where padding every cell to its bound (``8 bs / n`` entries a level) would
+move ~6 MiB a step at bs 8,192 over 2 ranks, mostly pads.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 COUNTS: Dict[str, List[int]] = {
-    "all_gather": [0, 0], "all_to_all": [0, 0], "sum_across": [0, 0],
+    "all_gather": [0, 0], "all_to_all": [0, 0], "uneven_block": [0, 0], "sum_across": [0, 0],
     "gather_bytes": [0, 0],
 }
 
@@ -76,6 +84,22 @@ def all_to_all(grp, t: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t)
     return out
+
+
+def uneven_block(grp, counts: torch.Tensor):
+    """For an exchange whose cells hold uneven counts: ``counts`` (world,
+    ...) int, the entries this rank sends each rank (and any finer cells).
+    Returns (every rank's counts stacked, (world, world, ...): [s, d] what
+    rank s sends rank d; the largest cell of any rank rounded up to
+    a multiple of 8 (the shard prep's tile), at least 8, as a Python int).  Each rank then
+    pads its cells to that block and exchanges them with
+    :func:`all_to_all`; the receiver reads its real entries' counts from the
+    stack.  One gather and one host read."""
+    counts = counts.contiguous()
+    _count("uneven_block", counts.numel() * counts.element_size())
+    every = _gather(grp, counts)
+    largest = int(every.max()) if every.numel() else 0
+    return every, max(8, -(-largest // 8) * 8)
 
 
 def sum_across(grp, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:

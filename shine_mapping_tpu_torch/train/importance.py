@@ -37,6 +37,7 @@ def cal_feature_importance(
     bs: int,
     down_rate: int = 1,
     loss_reduction: str = "mean",
+    group=None,
 ) -> None:
     """Accumulate |d loss / d features| over the pool into
     ``grid.importance_weight`` (replaced by new tensors on the grid).
@@ -53,7 +54,13 @@ def cal_feature_importance(
 
     ``pool_coord`` (n, 3) and ``pool_sdf_label`` (n,): numpy arrays or
     tensors (the driver passes the head of its device pool, so nothing is
-    uploaded again).  ``geo`` takes no gradient."""
+    uploaded again).  ``geo`` takes no gradient.
+
+    ``group`` (a ``parallel.mesh.DataGroup`` of several ranks, each holding
+    the whole tables and pool): rank k sweeps batches k, k + n, ..., and the
+    ranks' accumulated tables are added in rank order (``comm.sum_across``),
+    so every rank holds the same bits (a row's per-batch sum, by atomics on
+    the card, is taken on one rank only)."""
     device = grid.features[0].device
     coord = _pool_tensor(pool_coord, device)
     label = _pool_tensor(pool_sdf_label, device)
@@ -64,7 +71,9 @@ def cal_feature_importance(
     feats = list(grid.features)
     acc = [torch.zeros(f.shape, dtype=torch.float32, device=device) for f in feats]
     step = torch.arange(bs, device=device) * down_rate
-    for k in range(math.ceil(n / interval)):
+    dp = group is not None and group.world > 1
+    mine = range(group.rank if dp else 0, math.ceil(n / interval), group.world if dp else 1)
+    for k in mine:
         idx = k * interval + step
         valid = (idx < n).to(torch.float32)
         idx = idx.clamp(max=n - 1)  # past the pool: weight 0, an exact zero gradient
@@ -78,6 +87,10 @@ def cal_feature_importance(
             g_tab = torch.zeros_like(acc[i]).index_add_(0, rows.reshape(-1).long(),
                                                          g.reshape(-1, D))
             acc[i] += g_tab.abs()
+    if dp:
+        from ..parallel import comm
+
+        acc = comm.sum_across(group, acc)
     for i in range(len(acc)):
         upd = grid.importance_weight[i] + acc[i]
         upd[-1] = 0.0  # trashbin row (utils/incre_learning.py:40)

@@ -57,15 +57,17 @@ their Adam state still advances (trainer.py:927-932).
 Several ranks (``train_chunk(..., group=)``, one process a card; JAX's
 ``batch_sharding``): each rank trains its slice of the global batch and
 the tables are updated either on every rank from all ranks' gathered
-entries (replicated tables) or, on routed windows, by each rank over its
-row blocks through K2's row-sharded caller (``row-sharded`` tables;
-:class:`RoutedWindows`, :func:`shard_windows_ok`).
+entries (replicated tables) or by each rank over its row blocks
+(row-sharded tables), their entries routed once per routed window
+(:class:`RoutedWindows`, :func:`shard_windows_ok`) or live each iid step
+(:func:`_live_route`) into K2's row-sharded caller (the lazy, dense and SGD
+updates summing the received entries by row).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -673,8 +675,8 @@ def owner_flags(corners: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
     JAX's cover masks choose the same owner, trainer.py:2250-2262).
     Returns (..., B, 8) bool; misses own nothing, so the trashbin row
     takes no reg."""
-    lead, B = corners.shape[:-2], corners.shape[-2]
-    rows = torch.where(found[..., None], corners.to(torch.int64), -1).reshape(*lead, B * 8)
+    lead = corners.shape[:-2]
+    rows = torch.where(found[..., None], corners.to(torch.int64), -1).reshape(*lead, -1)
     srt, order = torch.sort(rows, dim=-1, stable=True)
     first = torch.ones_like(srt, dtype=torch.bool)
     first[..., 1:] = srt[..., 1:] != srt[..., :-1]
@@ -856,15 +858,17 @@ def _gather_rows(feats, corners, leaf: bool = True):
     return G
 
 
-def _lookups(tables, feats, coords, levels: Sequence[int]):
+def _lookups(tables, feats, coords, levels: Sequence[int], sizes=None):
     """Per level: the containing node's corner rows (misses -> the trashbin
     row; a missed probe lands on an arbitrary slot whose rows may belong to
-    a real node) and the found mask."""
+    a real node) and the found mask.  ``sizes``: the whole tables' rows
+    (row-sharded ``feats`` hold blocks); default ``feats``' own."""
     corners, found = [], []
     with torch.no_grad():
         for i, level in enumerate(levels):
             c_i, f_i = lookup_level(tables[i], coords, level)
-            trash = torch.full_like(c_i, feats[i].shape[0] - 1)
+            C = feats[i].shape[0] if sizes is None else sizes[i]
+            trash = torch.full_like(c_i, C - 1)
             corners.append(torch.where(f_i[:, None], c_i, trash))
             found.append(f_i)
     return corners, found
@@ -890,19 +894,21 @@ def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, 
 
 
 def _check_supported(s: TrainSettings, mode: str, group, batch_windows) -> bool:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the port
-    does not run yet, and ValueError for what the JAX package refuses too.
-    Returns whether the chunk runs over several ranks."""
+    """Raise ValueError for what the JAX package refuses over several ranks
+    too.  Returns whether the chunk runs over several ranks."""
     if group is None or group.world == 1:
         if batch_windows is not None and batch_windows.route is not None:
             raise ValueError("routed windows need the group of ranks they were routed for")
         return False
     routed = batch_windows is not None and batch_windows.route is not None
-    if group.table_sharding == "rows" and not routed:
-        raise NotImplementedError(
-            "not ported yet, see ROADMAP.md: row-sharded tables without routed windows "
-            "(Queue A item 14b); precompute the fused windows with shards=world")
-    if group.table_sharding != "rows" and routed:
+    rows = group.table_sharding == "rows"
+    if rows and not routed and mode == "pallas":
+        # JAX trainer.py:806-820: its kernel island runs replicated and
+        # would all-gather row-sharded tables into every chip each step
+        raise ValueError("feature_update 'pallas' needs replicated feature tables; with "
+                         "tpu.table_sharding: rows use 'fused'/'sparse' or precompute the "
+                         "windows with shards=n_devices")
+    if not rows and routed:
         raise ValueError("routed windows update row-sharded tables: place the training "
                          "state with table_sharding 'rows'")
     if routed:
@@ -910,20 +916,16 @@ def _check_supported(s: TrainSettings, mode: str, group, batch_windows) -> bool:
         if rt.rank != group.rank or rt.n != group.world:
             raise ValueError(f"routed windows of rank {rt.rank} of {rt.n}, not {group.rank} of "
                              f"{group.world}: place them with place_routed_windows")
-    if s.continual_reg_on:
-        if routed:
-            raise ValueError("continual_reg_on is not supported with shard-routed windows; "
-                             "use replicated tables (as the JAX package)")
-        raise NotImplementedError("not ported yet, see ROADMAP.md: continual-learning reg "
-                                  "over several ranks, the incremental driver's "
-                                  "data-parallel branch (Queue A item 14a)")
+    if s.continual_reg_on and routed:
+        raise ValueError("continual_reg_on is not supported with shard-routed windows; "
+                         "use replicated tables (as the JAX package)")
     if s.bs % group.world:
         raise ValueError(f"bs {s.bs} does not split over {group.world} ranks")
     if s.semantic_on and (s.bs // group.world * (s.ray_sample_count if s.ray_loss else 1)
                           ) % s.sem_label_decimation:
         raise ValueError("each rank's batch must be a whole number of sem_label_decimation "
                          "strides")
-    if (batch_windows is not None and not routed and mode in ("fused", "pallas")
+    if (batch_windows is not None and not routed and not rows and mode in ("fused", "pallas")
             and not batch_windows.deterministic):
         raise ValueError("replicated ranks need windows with sorted preps for the update's "
                          "deterministic sum: precompute_batch_windows(..., deterministic=True)")
@@ -1074,6 +1076,99 @@ def _dense_reg(s: TrainSettings, shadow, feats, corners):
     return reg
 
 
+class _LiveRoute(NamedTuple):
+    """One iid step's entries routed to their rows' ranks (:func:`_live_route`)."""
+
+    slot: torch.Tensor  # (M,) each entry's place in the (n, L, E) cells; n L E: not routed
+    counts: torch.Tensor  # (n_s, n_d, L, 2): entries rank s sends rank d, of them the batch's
+    E: int
+    req: torch.Tensor  # (n_s, L, E) int64: the block rows each rank asked of this one, -1 pad
+
+
+def _live_route(group, rows_l, go_l, sizes, n_batch) -> _LiveRoute:
+    """The live routing of an iid step on row-sharded tables (the
+    counterpart of :class:`RoutedWindows`, built per step).  ``rows_l[l]``
+    (M_l,) level l's entries' rows in the whole table, ``go_l[l]`` (M_l,)
+    which of them route (one that does not reads the zero row and sends no
+    gradient), of which the first ``n_batch[l]`` are the batch's (the
+    rest the consistency term's near points).  Each goes to its row's rank
+    ``r // (C_l / n)`` (as :func:`_route_cells`), into the cell (row rank,
+    level), in entry order, so a cell's entries from one rank arrive in
+    (sample, corner) order, the batch's first.  The cells are padded to
+    the step's largest (``comm.uneven_block``: one gather of the counts,
+    one host read), and one all-to-all takes each rank its requests."""
+    from ..parallel import comm
+
+    n, L = group.world, len(sizes)
+    dev = rows_l[0].device
+    cells, lrows, in_b = [], [], []
+    for l, (r, go, C) in enumerate(zip(rows_l, go_l, sizes)):
+        cl = int(C) // n
+        r = r.reshape(-1).to(torch.int64)
+        d = torch.div(r, cl, rounding_mode="floor")
+        cells.append(torch.where(go.reshape(-1), d * L + l, n * L))
+        lrows.append(r - d * cl)
+        in_b.append(torch.arange(r.shape[0], device=dev) < int(n_batch[l]))
+    cell, lrow, in_b = torch.cat(cells), torch.cat(lrows), torch.cat(in_b)
+    cnt = torch.zeros((2, n * L + 1), dtype=torch.int64, device=dev)
+    cnt[0].scatter_add_(0, cell, torch.ones_like(cell))
+    cnt[1].scatter_add_(0, cell, in_b.to(torch.int64))
+    every, E = comm.uneven_block(group, cnt[:, :n * L].reshape(2, n, L).permute(1, 2, 0))
+    srt, perm = torch.sort(cell, stable=True)
+    pos = torch.arange(srt.shape[0], device=dev) - torch.searchsorted(srt, srt)
+    slot = torch.empty_like(srt).scatter_(0, perm, torch.where(srt < n * L, srt * E + pos,
+                                                               n * L * E))
+    send = torch.full((n * L * E + 1,), -1, dtype=torch.int32, device=dev)
+    send.index_put_((slot,), torch.where(cell < n * L, lrow, -1).to(torch.int32))
+    req = comm.all_to_all(group, send[:-1].reshape(n, L, E)).long()
+    return _LiveRoute(slot, every, E, req)
+
+
+def _live_serve(group, rt: _LiveRoute, feats) -> torch.Tensor:
+    """Island 1 of a live routing: the rows of this rank's blocks go back to
+    the ranks that asked.  Returns each entry's row, (M, D) float32 (the
+    zero row for an entry that does not route)."""
+    from ..parallel import comm
+
+    D = int(feats[0].shape[1])
+    req = rt.req.clamp(min=0)
+    send = torch.stack([feats[l][req[:, l]] for l in range(len(feats))], dim=1)
+    recv = comm.all_to_all(group, send)  # (n_d, L, E, D)
+    flat = torch.cat([recv.reshape(-1, D), recv.new_zeros((1, D))])
+    return flat[rt.slot].float()
+
+
+def _live_send(group, rt: _LiveRoute, vals: torch.Tensor) -> torch.Tensor:
+    """Island 2 of a live routing: each entry's ``vals`` (M, K) row goes to
+    its row's rank.  Returns what this rank receives, (n_s, L, E, K), zero
+    in the pads."""
+    from ..parallel import comm
+
+    n, L = rt.req.shape[0], rt.req.shape[1]
+    buf = vals.new_zeros((n * L * rt.E + 1, vals.shape[1]))
+    buf.index_put_((rt.slot,), vals)  # entries that do not route land on the last row
+    return comm.all_to_all(group, buf[:-1].reshape(n, L, rt.E, -1))
+
+
+def _received_batch(rt: _LiveRoute, rank: int):
+    """Per level, which entries a row's rank received in a live routing are
+    the batch's (the rest the consistency term's near points, or pads).
+    Returns per level (n_s, E) bool."""
+    slot = torch.arange(rt.E, device=rt.req.device)[None, :]
+    return [(slot < rt.counts[:, rank, l, 1][:, None]) & (rt.req[:, l] >= 0)
+            for l in range(rt.req.shape[1])]
+
+
+def _owner_flags_received(rt: _LiveRoute, rank: int):
+    """Per level, which entries a row's rank received in a live routing carry
+    the continual reg: the received batch entries in global (sample rank,
+    local entry) order are the whole batch's (sample, corner) order, so the
+    first of each row is one rank's owner entry (:func:`owner_flags`).
+    Returns per level (n_s, E) bool."""
+    return [owner_flags(rt.req[:, l].reshape(-1, 1), b.reshape(-1)).reshape(b.shape)
+            for l, b in enumerate(_received_batch(rt, rank))]
+
+
 def train_chunk(
     params: Dict[str, Any],
     opt_state: OptState,
@@ -1153,7 +1248,21 @@ def train_chunk(
       samples' ranks their rows; after the backward a second all-to-all
       takes each entry's gradient to its row's rank, which runs
       ``adam_kernel.fused_adam_shard`` over its blocks (JAX ``body_winx``'s
-      islands, trainer.py:1473-1515, :1572-1622).
+      islands, trainer.py:1473-1515, :1572-1622);
+    * ``rows`` on iid batches (JAX's GSPMD ``rows`` x ``fused`` / ``sparse``,
+      trainer.py:806-820): the same two islands routed live each step
+      (:func:`_live_route`; ``fused``, the rows' ranks prepping their
+      received entries with csrc/entry_prep.cu; ``sparse``, ``dense``
+      and SGD summing them by row before they step their blocks);
+      ``pallas``, bf16 moments and bf16 tables need routed windows there,
+      as in JAX (ValueError).
+
+    The continual reg over ranks: replicated tables fold it into each
+    rank's entries with its slice of the whole batch's owner flags (from
+    the windows, or from every rank's gathered rows), before the gather;
+    row-sharded tables on the rows' ranks (``reg_loss`` the ranks' shares
+    added); the lazy and dense updates of replicated tables on the rows
+    summed across ranks (rank 0's ``reg_loss`` counted).
 
     The returned aux are the whole batch's on every rank (one sum across
     ranks per chunk).
@@ -1188,6 +1297,11 @@ def train_chunk(
     mode = resolve_feature_update(s, batch_windows is not None and batch_windows.fused)
     dp = _check_supported(s, mode, group, batch_windows)
     routed = dp and batch_windows is not None and batch_windows.route is not None
+    # row-sharded tables on iid batches: the entries route live, each step
+    live = dp and not routed and group.table_sharding == "rows"
+    # the dense update by autodiff through whole tables (live routing sums
+    # its routed entries instead)
+    autodiff = mode == "dense" and not live
     _check_modes(s, mode, feats, m_feats, n_used, pool, pre_lookups, batch_windows,
                  batch_indices, sr_noise16, n_iters, shadow, generator, near_indices,
                  near_shifts, group if routed else None)
@@ -1206,9 +1320,14 @@ def train_chunk(
     L = len(s.levels)
     D = int(feats[0].shape[1])
     row_base = None
+    sizes = [int(f.shape[0]) for f in feats]  # the whole tables' rows
     if routed:
-        whole = [(C, D) for C in batch_windows.route.sizes]
-        row_base = adam_kernel.shard_row_base(whole, group.world, group.rank)
+        sizes = list(batch_windows.route.sizes)
+    elif live:
+        sizes = [int(f.shape[0]) * group.world for f in feats]
+    if routed or live:
+        row_base = adam_kernel.shard_row_base([(C, D) for C in sizes], group.world, group.rank)
+    blocks = [C // group.world for C in sizes] if live else None
 
     def routed_rows(wsel):
         """Island 1: the rows this rank serves go to their samples' ranks;
@@ -1238,29 +1357,150 @@ def train_chunk(
             eps=s.adam_eps, grads_bf16=grads_bf16, sr_seed=step if params_bf16 else None,
             pre=adam_kernel.window_prep(rt.pre, wsel))
 
-    def gathered_entries(corners, grads, near):
-        """The replicated island's entries: every rank's rows and gradients
-        per level, in rank order (each rank's near points padded to the
-        batch's count with trashbin rows and zero gradients)."""
-        rows_l, g_l = [], []
+    def live_rows(corners, found, near):
+        """Island 1 of an iid step on row-sharded tables: this rank's
+        entries (its samples' corners, then its near points') route to
+        their rows' ranks (:func:`_live_route`), which serve the rows back.
+        The dense update's misses route too: the reg touches their trashbin
+        row, as one rank's autodiff does.  Returns (the route, the samples'
+        rows G_i (b, 8, D) and the near points' rows, leaf tensors)."""
+        rows_l, go_l, n_b = [], [], []
         for i in range(L):
-            r, g = corners[i].reshape(-1).to(torch.int32), grads[i].reshape(-1, D)
+            r, f = [corners[i].reshape(-1)], [found[i][:, None].expand(-1, 8).reshape(-1)]
             if near is not None:
-                cnt = near["cnt"]
+                r.append(near["corners"][i].reshape(-1))
+                f.append(near["found"][i][:, None].expand(-1, 8).reshape(-1))
+            rows_l.append(torch.cat(r))
+            go_l.append(torch.ones_like(rows_l[-1], dtype=torch.bool) if mode == "dense"
+                        else torch.cat(f))
+            n_b.append(int(corners[i].numel()))
+        rt = _live_route(group, rows_l, go_l, sizes, n_b)
+        G_all = _live_serve(group, rt, feats)
+        G, G_near, o = [], [], 0
+        for i in range(L):
+            k = rows_l[i].shape[0]
+            part = G_all[o:o + k]
+            G.append(part[:n_b[i]].reshape(-1, 8, D).contiguous().requires_grad_())
+            G_near.append(part[n_b[i]:].reshape(-1, 8, D).contiguous().requires_grad_())
+            o += k
+        return rt, G, G_near
+
+    def live_update(rt, G, near, lr, bc1, bc2, aux):
+        """Island 2 of an iid step on row-sharded tables: every entry's
+        gradient goes to its row's rank.  The kernel update folds the
+        continual reg into one received entry per touched row (the first of
+        the batch's in global (sample, corner) order, as one rank's
+        :func:`owner_flags`), preps the received rows with
+        ``adam_kernel.entry_prep_shard`` (csrc/entry_prep.cu) and steps its
+        blocks with K2's row-sharded caller, also under
+        ``fuse_update_levels: false`` (one launch over the levels' blocks).
+        The lazy, dense and SGD updates sum the received entries by row and
+        step their blocks."""
+        grads = [torch.cat([G[i].grad.reshape(-1, D)]
+                           + ([near[i].grad.reshape(-1, D)] if near is not None else []))
+                 for i in range(L)]
+        recv = _live_send(group, rt, torch.cat(grads))  # (n_s, L, E, D)
+        reg = None
+        if mode in ("fused", "pallas"):
+            if s.continual_reg_on:
+                rc = rt.req.clamp(min=0)
+                g_l, reg = _reg_fold(s, shadow, [rc[:, l] for l in range(L)],
+                                     [feats[l][rc[:, l]].float() for l in range(L)],
+                                     [recv[:, l] for l in range(L)],
+                                     _owner_flags_received(rt, group.rank))
+                recv = torch.stack(g_l, dim=1)
+            g_loc = recv.permute(1, 0, 2, 3).reshape(-1, D).contiguous()
+            req = rt.req.permute(1, 0, 2)  # (L, n_s, E)
+            pre = adam_kernel.entry_prep_shard([req[i].contiguous() for i in range(L)],
+                                               blocks, D)
+            adam_kernel.fused_adam_shard(feats, m_feats, v_feats, None, g_loc, lr, bc1, bc2,
+                                         lr_scale[FEATURES], row_base, eps=s.adam_eps,
+                                         pre=pre)
+        else:
+            in_b = _received_batch(rt, group.rank)
+            segs = []
+            for i in range(L):
+                vals = recv[:, i].reshape(-1, D)
+                if mode == "dense" and s.continual_reg_on:
+                    # a last column marks the rows the samples touch (the reg's)
+                    vals = torch.cat([vals, in_b[i].reshape(-1, 1).to(vals.dtype)], dim=1)
+                # the pads' row -1 left out (the lazy step's misses do not route)
+                segs.append(sparse_adam.segment_by_row(rt.req[:, i], vals, 0))
+            if mode == "sparse":
+                for i, seg in enumerate(segs):
+                    kw = {}
+                    if s.continual_reg_on:
+                        kw = dict(reg_lambda=s.lambda_forget, importance=shadow["importance"][i],
+                                  last_frame=shadow["last_frame"][i])
+                    r_i = sparse_adam.sparse_adam_level(
+                        feats[i], m_feats[i], v_feats[i], seg, lr * lr_scale[FEATURES][i],
+                        bc1, bc2, eps=s.adam_eps, **kw)
+                    reg = r_i if reg is None else reg + r_i
+            else:
+                g_rows, reg = reg_rows([g.rows for g in segs], [g.grads for g in segs])
+                for i, (seg, f) in enumerate(zip(segs, feats)):
+                    g = torch.zeros(f.shape, dtype=torch.float32, device=device)
+                    g.index_put_((seg.rows,), g_rows[i])
+                    lr_i = lr * lr_scale[FEATURES][i]
+                    if s.opt_adam:
+                        adam_leaf(f, g, m_feats[i], v_feats[i], lr_i, 0.0, bc1, bc2,
+                                  eps=s.adam_eps)
+                    else:
+                        sgd_leaf(f, g, m_feats[i], lr_i, 0.0)
+        if s.continual_reg_on:
+            # this rank's blocks' share: the chunk's sum across ranks adds them
+            aux["reg_loss"] = reg
+            aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
+
+    def reg_rows(rows_l, tot_l):
+        """The dense update's touched rows' summed gradients, ``tot_l[l]``'s
+        first D columns; under the continual reg with ``2 lambda imp (p -
+        last)`` added on the samples' rows (a last column of ``tot_l[l]``
+        marks them: :func:`_dense_reg`'s rows).  Returns (the gradients per
+        level, the reg or None)."""
+        g_rows = [t[:, :D] for t in tot_l]
+        if not s.continual_reg_on:
+            return g_rows, None
+        return _reg_fold(s, shadow, rows_l, [f.detach()[r].float() for f, r in zip(feats, rows_l)],
+                         g_rows, [t[:, D] > 0 for t in tot_l])
+
+    def gathered_rows(corners, near):
+        """The replicated island's rows: every rank's per level, in rank
+        order, (n, L, M_loc) (each rank's near points padded to the batch's
+        count with trashbin rows)."""
+        rows_l = []
+        for i in range(L):
+            r = corners[i].reshape(-1).to(torch.int32)
+            if near is not None:
                 k = near["corners"][i].shape[0]
-                pad_r = torch.full((cnt - k, 8), feats[i].shape[0] - 1, dtype=torch.int32,
+                pad_r = torch.full(((near["cnt"] - k) * 8,), sizes[i] - 1, dtype=torch.int32,
                                    device=device)
-                r = torch.cat([r, near["corners"][i].to(torch.int32).reshape(-1),
-                               pad_r.reshape(-1)])
-                g = torch.cat([g, near["G"][i].grad.reshape(-1, D),
-                               g.new_zeros(((cnt - k) * 8, D))])
+                r = torch.cat([r, near["corners"][i].to(torch.int32).reshape(-1), pad_r])
             rows_l.append(r)
+        return comm.all_gather(group, torch.stack(rows_l))
+
+    def gathered_grads(grads, near):
+        """The replicated island's gradients, as :func:`gathered_rows` (bf16
+        when the kernel rounds them so; the near points' padded with zeros)."""
+        g_l = []
+        for i in range(L):
+            g = grads[i].reshape(-1, D)
+            if near is not None:
+                k = near["corners"][i].shape[0]
+                g = torch.cat([g, near["G"][i].grad.reshape(-1, D),
+                               g.new_zeros(((near["cnt"] - k) * 8, D))])
             g_l.append(g)
-        R = comm.all_gather(group, torch.stack(rows_l))  # (n, L, M_loc)
         Gs = torch.stack(g_l)
         Gg = comm.all_gather(group, Gs.to(torch.bfloat16) if grads_bf16 else Gs)
-        return ([R[:, i].reshape(-1).contiguous() for i in range(L)],
-                [Gg[:, i].reshape(-1, D).float().contiguous() for i in range(L)])
+        return [Gg[:, i].reshape(-1, D).float().contiguous() for i in range(L)]
+
+    def _whole_reg(aux, reg):
+        """The reg of replicated tables, which every rank holds whole (the
+        touched rows summed across ranks): rank 0's counts in the chunk's
+        sum across ranks."""
+        share = reg if group.rank == 0 else torch.zeros_like(reg)
+        aux["reg_loss"] = share
+        aux["total_loss"] = aux["total_loss"] + s.lambda_forget * share
 
     def one_step(step, it):
         """One step (JAX's scan body): the batch, the loss and its
@@ -1284,6 +1524,7 @@ def train_chunk(
                 idx = torch.sort(draw).values if s.sort_batch else draw
         counts = None
         idx_all = idx
+        sl = None
         if dp:
             # this rank's slice of the global batch; the loss's counts are
             # the whole batch's
@@ -1307,26 +1548,34 @@ def train_chunk(
             corners = [pre_lookups[i][0][idx] for i in range(L)]
             found = [pre_lookups[i][1][idx] for i in range(L)]
         else:
-            corners, found = _lookups(tables, feats, batch["coord"], s.levels)
+            corners, found = _lookups(tables, feats, batch["coord"], s.levels, sizes)
         near = None
         if s.consistency_loss_on:
-            lo = group.batch_slice(idx_all.shape[0]).start if dp else 0
+            lo = sl.start if dp else 0
             n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
                                            near_shifts, int(idx_all.shape[0]), lo)
             # live probes even with pool lookups: the near points are not pool samples
-            corners_n, found_n = _lookups(tables, feats, n_coords, s.levels)
+            corners_n, found_n = _lookups(tables, feats, n_coords, s.levels, sizes)
             near = {"idx": n_idx, "coords": n_coords, "corners": corners_n, "found": found_n,
-                    "G": _gather_rows(feats, corners_n, leaf=mode != "dense"),
                     "cnt": counts["n_near"] if dp else None}
-        G = routed_rows(wsel) if routed else _gather_rows(feats, corners, leaf=mode != "dense")
+        route = None
+        if live:
+            route, G, G_near = live_rows(corners, found, near)
+            if near is not None:
+                near["G"] = G_near
+        else:
+            if near is not None:
+                near["G"] = _gather_rows(feats, near["corners"], leaf=not autodiff)
+            G = routed_rows(wsel) if routed else _gather_rows(feats, corners,
+                                                              leaf=not autodiff)
         for p in dense.values():
             p.grad = None
-        if mode == "dense":
+        if autodiff:
             for f in feats:
                 f.grad = None
 
         total, aux = _compute_loss_sparse(params, G, batch, found, s, near, counts)
-        if mode == "dense" and s.continual_reg_on:
+        if mode == "dense" and s.continual_reg_on and not dp:
             reg = _dense_reg(s, shadow, feats, corners)
             total = total + s.lambda_forget * reg
             aux["reg_loss"] = reg
@@ -1339,23 +1588,39 @@ def train_chunk(
             # the decoders' gradients summed across ranks (rank order)
             have = [k for k, g in dense_grads.items() if g is not None]
             dense_grads.update(zip(have, comm.sum_across(group, [dense_grads[k] for k in have])))
-            if mode == "dense":
+            if autodiff:
+                summed = []
                 for i, f in enumerate(feats):
+                    mine = corners[i].reshape(-1).long()
                     rows = torch.unique(torch.cat(
-                        [corners[i].reshape(-1)]
-                        + ([near["corners"][i].reshape(-1)] if near is not None else [])).long())
-                    u, tot = _sum_rows(group, rows, f.grad[rows])
-                    f.grad = torch.zeros_like(f.grad).index_put_((u,), tot)
+                        [mine] + ([near["corners"][i].reshape(-1).long()] if near is not None
+                                  else [])))
+                    vals = f.grad[rows]
+                    if s.continual_reg_on:  # a last column marks the samples' rows (the reg's)
+                        vals = torch.cat([vals, torch.isin(rows, mine).to(vals.dtype)[:, None]],
+                                         dim=1)
+                    summed.append(_sum_rows(group, rows, vals))
+                g_rows, reg = reg_rows([u for u, _ in summed], [t for _, t in summed])
+                for f, (u, _), g in zip(feats, summed, g_rows):
+                    f.grad = torch.zeros_like(f.grad).index_put_((u,), g)
+                if reg is not None:
+                    _whole_reg(aux, reg)
         if not s.opt_adam:
             # SGD runs the dense update only (JAX _resolve_mode)
             sgd_update(dense, dense_grads, opt_state, lr, lr_scale, wd)
+            if live:
+                live_update(route, G, near["G"] if near else None, lr, None, None, aux)
+                return aux
             for i, f in enumerate(feats):
                 sgd_leaf(f, f.grad, m_feats[i], lr * lr_scale[FEATURES][i], 0.0)
             return aux
         adam_update(dense, dense_grads, opt_state, lr, lr_scale, wd, b1=0.9, b2=0.99,
                     eps=s.adam_eps)
         bc1, bc2 = bias_corrections(opt_state.step)
-        if mode == "dense":
+        if live:
+            live_update(route, G, near["G"] if near else None, lr, bc1, bc2, aux)
+            return aux
+        if autodiff:
             for i, f in enumerate(feats):
                 adam_leaf(f, f.grad, m_feats[i], v_feats[i], lr * lr_scale[FEATURES][i], 0.0,
                           bc1, bc2, eps=s.adam_eps)
@@ -1375,23 +1640,37 @@ def train_chunk(
                     feats[i], m_feats[i], v_feats[i], seg, lr * lr_scale[FEATURES][i], bc1, bc2,
                     eps=s.adam_eps, **kw)
                 reg_total = reg_i if reg_total is None else reg_total + reg_i
-            if s.continual_reg_on:
+            if s.continual_reg_on and dp:
+                _whole_reg(aux, reg_total)
+            elif s.continual_reg_on:
                 aux["reg_loss"] = reg_total
                 aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg_total
             return aux
         if routed:
             routed_update(wsel, grads, lr, bc1, bc2, step)
             return aux
+        if dp:
+            R = gathered_rows(corners, near)  # (n, L, M_loc)
         if s.continual_reg_on:
+            # replicated ranks fold the reg into their own entries before the
+            # gather (bf16 entries rounded once), with their slice of the
+            # whole batch's owner flags: the windows', or from every rank's
+            # rows (a miss's row is the trashbin, which no found corner holds)
             if batch_windows is not None:
-                owner = [o[wsel] for o in batch_windows.owner]
+                owner = [o[wsel] if sl is None else o[wsel][sl] for o in batch_windows.owner]
+            elif dp:
+                b8 = corners[0].numel()
+                owner = [owner_flags(w, w[:, 0] != C - 1)[sl] for w, C in
+                         zip((R[:, i, :b8].reshape(-1, 8) for i in range(L)), sizes)]
             else:
                 owner = [owner_flags(c, f) for c, f in zip(corners, found)]
             grads, reg = _reg_fold(s, shadow, corners, G, grads, owner)
+            # over several ranks this rank's share: the chunk's sum adds them
             aux["reg_loss"] = reg
             aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
         if dp:
-            corners, grads = gathered_entries(corners, grads, near)
+            corners = [R[:, i].reshape(-1).contiguous() for i in range(L)]
+            grads = gathered_grads(grads, near)
         elif near is not None:
             # the near points' rows ride the update as extra entries
             corners = [torch.cat([c.reshape(-1, 8), cn.reshape(-1, 8)])
@@ -1428,7 +1707,7 @@ def train_chunk(
 
     dropped = torch.zeros((), dtype=torch.int64, device=device)
     hist: List[Dict[str, torch.Tensor]] = []
-    if mode == "dense":
+    if autodiff:
         for f in feats:
             f.requires_grad_(True)
     try:
@@ -1437,7 +1716,7 @@ def train_chunk(
             aux = one_step(step, it)
             hist.append({k: a.detach() for k, a in aux.items()})
     finally:
-        if mode == "dense":
+        if autodiff:
             for f in feats:
                 f.requires_grad_(False)
                 f.grad = None

@@ -980,3 +980,63 @@ def test_deterministic_sum_refuses_the_kernel_prep(cuda_device):
     for x, y in zip(card, before):
         for a, b in zip(x, y):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "bf16m"])
+def test_shard_kernel_on_a_live_prep(cuda_device, variant):
+    """K2's row-sharded caller on the prep of an iid step's live routing:
+    csrc/entry_prep.cu bins a shard's received entries (two sample ranks'
+    cells padded with -1 rows and NaN gradients, never read) into the same
+    tiles and (row, entry) pairs as the sorted ``entry_prep_local``, the pads
+    excluded and not dropped; the kernel on that prep against its plain
+    version on CPU copies (f32 rtol 1e-5 / atol 1e-6 and every table
+    bit-equal on rows with at most one entry; bf16 moments on those rows)."""
+    rng = np.random.default_rng(7)
+    n, C, L = 2, 1 << 13, 3
+    whole, rows_l, g_l = _shard_case(rng, cuda_device, variant, n, C, L)
+    b = C // n
+    single = [torch.bincount(r[r != C - 1].long(), minlength=C) <= 1 for r in rows_l]
+    kw = dict(grads_bf16=variant != "f32")
+    for k in range(n):
+        rows_list, gs = [], []
+        for l in range(L):
+            r = rows_l[l].long()
+            cells = []
+            for half in (slice(0, len(r) // 2), slice(len(r) // 2, len(r))):
+                rh, gh = r[half], g_l[l][half]
+                sel = (rh // b == k) & (rh != C - 1)
+                cells.append((rh[sel] - k * b, gh[sel]))
+            E = -(-max(len(c[0]) for c in cells) // 8) * 8
+            rows_list.append(torch.cat([torch.cat([c[0], c[0].new_full((E - len(c[0]),), -1)])
+                                        for c in cells]).to(torch.int32))
+            gs.append(torch.cat([torch.cat([c[1], c[1].new_full((E - len(c[0]), D),
+                                                                 float("nan"))])
+                                 for c in cells]))
+        g_loc = torch.cat(gs)
+        ak.reset_launch_counts()
+        pre = ak.entry_prep_shard([r.to(cuda_device) for r in rows_list], [b] * L, D)
+        assert ak.LAUNCHES["entry_prep"] == 1 and not pre.sorted_by_row
+        plain = ak.entry_prep_shard(rows_list, [b] * L, D)
+        assert plain.sorted_by_row and int(pre.dropped) == 0
+        assert torch.equal(pre.tile_off.cpu(), plain.tile_off)
+
+        def pairs(p):
+            return torch.sort((p.rows.cpu().long() << 32) | p.order.cpu().long()).values
+
+        assert torch.equal(pairs(pre), pairs(plain))
+        loc = [[t[k * b:(k + 1) * b].clone() for t in lv] for lv in whole]
+        card = [[t.to(cuda_device) for t in lv] for lv in loc]
+        base = ak.shard_row_base([(C, D)] * L, n, k)
+        ak.fused_adam_shard(*card, None, g_loc.to(cuda_device), LR, BC1, BC2,
+                            [1.0, 0.5, 0.25], base, pre=pre, **kw)
+        ak.fused_adam_shard_plain(*loc, None, g_loc, LR, BC1, BC2, [1.0, 0.5, 0.25], base,
+                                  pre=plain, **kw)
+        assert ak.LAUNCHES["fused_adam_multi_shard" + ak._SUFFIX[variant]] == 1
+        for t in range(3):
+            for l in range(L):
+                a, c, s_ = card[t][l].cpu(), loc[t][l], single[l][k * b:(k + 1) * b]
+                assert torch.equal(a[s_].view(torch.int16) if a.itemsize == 2 else a[s_],
+                                   c[s_].view(torch.int16) if c.itemsize == 2 else c[s_])
+                if a.dtype == torch.float32:
+                    torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)

@@ -96,3 +96,19 @@ def test_sharded_ingest_meshing_and_checkpoint(two_runs, tmp_path):
     assert sorted(a.files) == sorted(b.files)
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_two_rank_driver_rows_on_iid_batches(two_runs, world, tmp_path):
+    """``table_sharding: rows`` without windows (``feature_update: fused``,
+    iid batches routed live each step) through the batch CLI on two spawned
+    ranks: the JAX package's bars, within 5 F-score points of the one-rank
+    driver on the same world."""
+    m1 = two_runs[0]
+    root, gt_path = world
+    cfg = port_cfg(root, str(tmp_path), feature_update="fused", iters=ITERS,
+                   vis_freq_iters=ITERS, mesh_shape=2, table_sharding="rows")
+    run_path, _, _ = run_shine_mapping_batch(cfg=cfg)
+    m = _score(os.path.join(run_path, f"mesh/mesh_iter_{ITERS}.ply"), gt_path)
+    print({k: round(v, 4) for k, v in m.items()}, "one rank", m1["F-score (%)"])
+    assert m["Chamfer_L1 (m)"] < 0.15 and m["F-score (%)"] > 75.0, m
+    assert abs(m["F-score (%)"] - m1["F-score (%)"]) < 5.0

@@ -229,20 +229,38 @@ def test_incre_needs_a_card_unless_the_config_says_cpu(world, tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(o3d_vis_on=True), "item 15"), (dict(mesh_shape=2), "item 14"),
-    (dict(num_processes=2), "item 14"), (dict(time_conditioned=True), None),
+    (dict(o3d_vis_on=True), "item 15"), (dict(mesh_shape=2), None),
+    (dict(num_processes=2), "tpu.process_id and tpu.coordinator"),
+    (dict(time_conditioned=True), None),
 ], ids=["o3d_vis_on", "data-parallel", "multi-host", "time_conditioned"])
-def test_incre_unported_options_raise(world, tmp_path, kw, item):
-    """The visualizer and multi-GPU runs still raise naming their ROADMAP
-    item.  A time-conditioned map, which raised before it was ported, now
-    runs through (the replay mode on 2 frames: the importance sweep of the
-    reg mode decodes without timestamps, in both packages)."""
+def test_incre_unported_options_raise(world, tmp_path, monkeypatch, kw, item):
+    """The visualizer still raises naming its ROADMAP item.  The options
+    that raised before they were ported now run through: ``mesh_shape: 2``
+    spawns two ranks of the driver (their runs are
+    tests/test_torch_dist_incre.py's), ``num_processes: 2`` joins ranks
+    launched apart and asks for their coordinator (ValueError without it),
+    a time-conditioned map trains (the replay mode on 2 frames: the
+    importance sweep of the reg mode decodes without timestamps, in both
+    packages)."""
+    from shine_mapping_tpu_torch.cli import shine_incre
     from shine_mapping_tpu_torch.cli.shine_incre import run_shine_mapping_incremental
 
     root, _ = world
-    if item is not None:
+    if item == "item 15":
         with pytest.raises(NotImplementedError, match=item):
             run_shine_mapping_incremental(cfg=port_cfg(root, str(tmp_path), "reg", **kw))
+        return
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            run_shine_mapping_incremental(cfg=port_cfg(root, str(tmp_path), "reg", **kw))
+        return
+    if "mesh_shape" in kw:
+        spawned = []
+        monkeypatch.setattr(shine_incre, "spawn_ranks",
+                            lambda run, cfg, path, backend: spawned.append((run, cfg)) or "r0")
+        assert run_shine_mapping_incremental(
+            cfg=port_cfg(root, str(tmp_path), "reg", **kw)) == ("r0", None, None)
+        assert spawned[0][0] is run_shine_mapping_incremental and spawned[0][1].mesh_shape == 2
         return
     cfg = port_cfg(root, str(tmp_path), "replay", end_frame=1, iters=20, **kw)
     run_path, _, params = run_shine_mapping_incremental(cfg=cfg)

@@ -203,15 +203,17 @@ _ROWS_GROUP = DataGroup(rank=0, world=2, device=torch.device("cpu"), table_shard
 @pytest.mark.parametrize("settings_kw,call_kw", [
     (dict(feature_update="sparse"), {}), (dict(opt_adam=False), {}),
     (dict(normal_loss_on=True), {}), (dict(ray_loss=True, main_loss_type="dr_neus"), {}),
-    (dict(sort_batch=True), {}), ({}, dict(pre_lookups=(), group=_ROWS_GROUP)),
+    (dict(sort_batch=True), {}),
+    (dict(feature_update="pallas"), dict(pre_lookups=(), group=_ROWS_GROUP)),
 ], ids=["sparse", "sgd", "normal_loss", "ray_loss", "sort_batch", "pre_lookups"])
 def test_train_chunk_rejects_unported_options(worlds, settings_kw, call_kw):
-    """Row-sharded tables without routed windows (with or without pool
-    lookups) still raise NotImplementedError naming their ROADMAP item
-    (data-parallel training itself is tests/test_torch_dist*.py's).  The
-    options of the cases that raised before they were ported now train
-    through: two steps with finite losses and parameters (their parity with
-    the JAX package is tests/test_torch_options.py's)."""
+    """Row-sharded tables without routed windows, which raised before they
+    were ported (their training is tests/test_torch_dist_rows.py's), still
+    refuse the ``pallas`` update as the JAX package does (ValueError, before
+    any collective).  The options of the other cases, which raised before
+    they were ported, now train through: two steps with finite losses and
+    parameters (their parity with the JAX package is
+    tests/test_torch_options.py's)."""
     from shine_mapping_tpu_torch.train.optimizer import init_opt_state
 
     cfg_t, grid_t, pool_t = worlds["torch"]
@@ -230,7 +232,7 @@ def test_train_chunk_rejects_unported_options(worlds, settings_kw, call_kw):
         dev["ray_depth"] = depth[: n - n % s.ray_sample_count].reshape(
             -1, s.ray_sample_count).mean(dim=1)
     if "group" in call_kw:
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(ValueError, match="needs replicated feature tables"):
             trainer.train_chunk(params, init_opt_state(params), grid_t.tables, dev, n, 0,
                                 torch.Generator(), s, 1, **call_kw)
         return
