@@ -171,8 +171,42 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (h) and the importance tables bit-identical after every frame,
    ``reg_loss`` after frame 0, the F-score within 5 points of the one-rank
    run of the same config and frames.
+11. surface: the launch through the config's knobs, the visualizer and the
+   RGB-D family.  The card's name and power limit.  (j) Two processes
+   launched apart, each with ``tpu.num_processes: 2``, its own
+   ``process_id`` and a localhost coordinator, run the batch CLI with phase
+   9's ``[multi] cli`` config (row-sharded tables, the bf16 map mode) and
+   ``tpu.mesh_shape: 4`` on phase 6's world, 200 steps: two local ranks
+   each, 4 gloo ranks on one card (on four cards each process sees two
+   through its own ``CUDA_VISIBLE_DEVICES``: NCCL, one rank a card); the
+   primary prints 4 ranks, each rank launches K2's row-sharded caller once
+   a step, and each rank's step 100 is held against the plain version at
+   its own row blocks with phase 9's bf16-p checks (``[kernels] K2 shard
+   ... at run (j)'s row blocks``; the check's launches are not counted),
+   phase 6's bars and within 5 F-score points of run B, one run
+   directory (rank 0's) returned by both processes, and the final
+   checkpoint's fixed-sample loss within 5 % of the drop of a one-process
+   ``mesh_shape: 4`` spawn of the same config.  The synthetic room
+   (tests/test_torch_rgbd_converter.py: 30 frames of 640 x 480, 16-bit
+   millimetre depth PNGs, RGB PNGs, NeuralRGBD's focal file and 4x4 poses,
+   exact ground truth) converted by ``python -m
+   shine_mapping_tpu_torch.data.rgbd_converter``.  (k) The batch CLI with
+   ``config/rgbd/rgbd_batch.yaml`` at its full width (4 levels, D 8, leaf
+   0.02 m, world level 12, bs 4096, 2x32 MLP, sdf_bce, octree meshing at
+   0.01 m) and ``o3d_vis_on``, 2,000 steps: 4 K1 launches a step (and their
+   live preps) and no other kernel, the loss falling, Chamfer-L1 < 1 cm and
+   the F-score at 2 cm > 90 % against the ground truth, one non-blank
+   snapshot a mesh in ``run_path/vis``.  (l) The incremental CLI with
+   ``rgbd_incre_reg.yaml`` on 5 overlapping frames of the room: the reg
+   after frame 0, one snapshot a frame, the F-score within 5 points of the JAX driver's
+   on the CPU (``JAX_ROOM_INCRE_FSCORE``).  Cuts on ``[surface] reduced:``
+   lines.  ``[kernels]`` K1 at 4 levels at run (k)'s final tables and at
+   run (l)'s, each against its plain version (phase 2's checks plus the
+   sum-order spread) with wrapper / with-pre / alone / plain / library /
+   bound ms, and each a JSON row of its own with its run's launches.
    ``--only agreement,city`` (any of agreement, map, incre, city, multi,
-   incre-multi) runs those phases alone and prints no result line.
+   incre-multi, surface, and launch: phase 11's (j) alone) runs those phases
+   alone and prints no result line.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -276,14 +310,19 @@ def cold_ms(fn, iters=50):
 # ----------------------------------------------------------------- phase 1
 
 
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def phase_device():
     import torch
 
     from shine_mapping_tpu_torch.ops import cuda_build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     print(f"[device] nvidia-smi: {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -3699,6 +3738,632 @@ def phase_incre_multi(per_run=None):
     return err, lib_ms, launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+# the synthetic room (tests/test_torch_rgbd_converter.py) at NeuralRGBD's
+# camera: 640 x 480, the green room's focal length
+ROOM_FRAMES = 30
+ROOM_CAMERA = dict(W=640, H=480, focal=554.2562584220408)
+ROOM_INCRE_EVERY = 2  # run (l): frames 0, 2, ..., 8, a third of a turn
+ROOM_INCRE_FRAMES = 5
+# eval_mesh at the room's scale: 1 cm spacing, inliers within 2 cm, no crop
+# to the ground truth's bounding box (the walls lie on it; the crop would
+# cut the half of each wall's vertices a hair outside)
+ROOM_EVAL_KW = dict(down_sample_res=0.01, threshold=0.02, truncation_acc=0.2,
+                    truncation_com=0.2, mesh_sample_point=2_000_000, gt_bbx_mask_on=False)
+ROOM_BARS = (0.01, 90.0)  # Chamfer-L1 < 1 cm, F-score at 2 cm > 90 %
+SURFACE_ITERS = 2000  # run (k): rgbd_batch.yaml's 20,000 cut
+MULTIHOST_ITERS = 200  # run (j): phase 9's [multi] cli run's 500 cut
+MULTIHOST_CHECK_STEP = 100  # run (j)'s step whose K2 shard launches are checked
+# F-score (%) of the last mesh of run (l)'s config and frames that the JAX
+# package's incremental driver reaches on the CPU: the mean over
+# setting.seed 42, 1 and 2 (95.902 / 96.225 / 95.702; JAX_PLATFORMS=cpu
+# python3 scripts/jax_incre_reference.py --room --seeds 42,1,2); run (l) on
+# the card must come within INCRE_FSCORE_GAP of it
+JAX_ROOM_INCRE_FSCORE = 95.943
+# a snapshot is non-blank: this many pixels off the background (the
+# rasterizer draws a mesh's nearest 60,000 triangles, MapVisualizer.
+# max_draw_triangles: sub-pixel at the default camera for a 1 cm mesh, so a
+# room's mesh covers a small share of the image)
+SNAPSHOT_INK = 100
+
+
+def write_room(root, n_frames=ROOM_FRAMES):
+    """The synthetic room's RGB-D sequence (``write_rgbd_room``: 16-bit
+    millimetre depth PNGs, RGB PNGs, a focal file, 4x4 poses), converted by
+    the port's ``python -m shine_mapping_tpu_torch.data.rgbd_converter``
+    into ``root/kitti``; the exact ground truth of all frames and of run
+    (l)'s frames as ``gt_all.ply`` / ``gt_incre.ply``.  Returns (the
+    converted root, {name: gt path}, timings)."""
+    from shine_mapping_tpu_torch.data import io
+
+    rgbd = _load_tests_module("test_torch_rgbd_converter")
+    t0 = time.perf_counter()
+    paths = rgbd.write_rgbd_room(os.path.join(root, "raw"), n_frames, **ROOM_CAMERA)
+    t1 = time.perf_counter()
+    kitti = os.path.join(root, "kitti")
+    subprocess.run([sys.executable, "-m", "shine_mapping_tpu_torch.data.rgbd_converter",
+                    "--depth_img_folder", paths["depth"], "--rgb_img_folder", paths["rgb"],
+                    "--intrinsic_file", paths["focal"], "--pose_file", paths["poses"],
+                    "--output_root", kitti], check=True, capture_output=True, timeout=600,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    t2 = time.perf_counter()
+    incre = list(range(0, ROOM_INCRE_EVERY * ROOM_INCRE_FRAMES, ROOM_INCRE_EVERY))
+    gts = {}
+    for name, frames in (("all", None), ("incre", incre)):
+        gts[name] = os.path.join(root, f"gt_{name}.ply")
+        io.write_ply(gts[name], io.PointCloud(points=rgbd.room_gt_points(
+            n_frames, **ROOM_CAMERA, frames=frames)))
+    return kitti, gts, (t1 - t0, t2 - t1)
+
+
+def surface_config(cls, name, kitti, out, cut, device=None):
+    """``config/rgbd/<name>.yaml`` as written, cut by ``cut`` (printed),
+    with the converted room's data paths, the output root and
+    ``o3d_vis_on``; ``cls``: either package's SHINEConfig.  Returns
+    (config, the ``[surface] reduced:`` line)."""
+    path = f"config/rgbd/{name}.yaml"
+    cfg = cls().load(path)
+    line = (f"[surface] reduced: {path}: " + ", ".join(f"{k} {getattr(cfg, k)} -> {v}"
+                                                       for k, v in cut.items())
+            + f"; the room's {ROOM_FRAMES} frames of {ROOM_CAMERA['W']} x {ROOM_CAMERA['H']} "
+            "(NeuralRGBD's green room: 1,442); data paths and output_root: the converted room; "
+            f"o3d_vis_on {cfg.o3d_vis_on} -> True")
+    cfg.pc_path = os.path.join(kitti, "rgbd_ply")
+    cfg.pose_path = os.path.join(kitti, "poses.txt")
+    cfg.output_root, cfg.o3d_vis_on = out, True
+    if device is not None:
+        cfg.device = device
+    for k, v in cut.items():
+        setattr(cfg, k, v)
+    return cfg, line
+
+
+def surface_incre_config(cls, kitti, out, device=None):
+    """Run (l)'s config: ``rgbd_incre_reg.yaml`` on 5 frames of the room
+    (every 2nd of 30: each overlaps the last, so the reg holds every frame
+    after the first), a mesh at the last."""
+    cut = {"every_frame": ROOM_INCRE_EVERY,
+           "end_frame": ROOM_INCRE_EVERY * (ROOM_INCRE_FRAMES - 1),
+           "mesh_freq_frame": ROOM_INCRE_FRAMES}
+    return surface_config(cls, "rgbd_incre_reg", kitti, out, cut, device)
+
+
+def _snapshots(run_path, want):
+    """The PNGs of ``run_path/vis``: ``want`` of them, each non-blank."""
+    import numpy as np
+    from PIL import Image
+
+    d = os.path.join(run_path, "vis")
+    names = sorted(os.listdir(d))
+    assert len(names) == want, f"{len(names)} snapshots in {d}, want {want}"
+    ink = []
+    for n in names:
+        img = np.asarray(Image.open(os.path.join(d, n)))
+        ink.append(int((img != 255).any(axis=2).sum()))
+        assert ink[-1] >= SNAPSHOT_INK, f"{n}: {ink[-1]} pixels drawn"
+    return (f"{len(names)} snapshots in run_path/vis, {min(ink)}-{max(ink)} pixels drawn of "
+            f"{img.shape[0] * img.shape[1]}")
+
+
+def _room_score(label, mesh_path, gt_path):
+    from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+
+    m = eval_mesh(mesh_path, gt_path, **ROOM_EVAL_KW)
+    print(f"[surface] {label}: eval_mesh F-score {m['F-score (%)']:.3f} % at "
+          f"{ROOM_EVAL_KW['threshold']} m, precision {m['Precision [Accuracy] (%)']:.3f} %, "
+          f"recall {m['Recall [Completeness] (%)']:.3f} %, Chamfer-L1 "
+          f"{m['Chamfer_L1 (m)']:.5f} m")
+    return m
+
+
+def _shard_step_check(ak, launch, kern, loc0, g_loc, lr, bc1, bc2, scales, base, kw):
+    """One step of K2's row-sharded caller in the bf16 map mode, as a rank
+    of run (j) launched it (``kern``: its blocks after the launch, ``loc0``
+    before), held against the plain version on the same inputs with phase
+    9's bf16-p checks: rows with at most one entry bit-equal to the plain
+    step with the kernel's noise (p, m and v); on every used row p's
+    rounding against the unrounded step (:func:`_check_sr`, with a
+    same-seed and an other-seed launch) and the moments bit-equal but for
+    one-ulp ties (:func:`_check_bf16_ties`); the rows past the used head
+    (no entry, zero moments) and levels with none untouched.  The used head
+    of a block ends at its last row with an entry or a nonzero moment.  The
+    check's own launches are taken off the counts.  Returns its summary."""
+    import torch
+
+    saved = dict(ak.LAUNCHES)
+    pre, seed = kw["pre"], kw["sr_seed"]
+    args = (None, g_loc, lr, bc1, bc2, scales, base)
+    ref = [[t.clone() for t in lv] for lv in loc0]
+    ak.fused_adam_shard_plain(*ref, *args, **kw)
+    exact = [[t.float() for t in loc0[0]], [t.clone() for t in loc0[1]],
+             [t.clone() for t in loc0[2]]]
+    ak.fused_adam_shard_plain(*exact, *args, **dict(kw, sr_seed=None))
+    again = [[t.clone() for t in lv] for lv in loc0]
+    other = [[t.clone() for t in lv] for lv in loc0]
+    launch(*again, *args, **kw)
+    launch(*other, *args, **dict(kw, sr_seed=seed + 1))
+    torch.cuda.synchronize()
+    for k in ak.LAUNCHES:  # only the path's own launch counts
+        ak.LAUNCHES[k] = saved[k]
+    sizes = [int(t.shape[0]) for t in loc0[0]]
+    rows = pre.rows.reshape(-1).long()
+    per_row = torch.bincount(rows[rows < sum(sizes)], minlength=sum(sizes)).split(sizes)
+    used = []
+    for l, n in enumerate(per_row):
+        live = (n > 0) | (loc0[1][l].float() != 0).any(1) | (loc0[2][l].float() != 0).any(1)
+        used.append(int(torch.nonzero(live).max()) + 1 if bool(live.any()) else 0)
+        for t in range(3):
+            a, c = kern[t][l].view(torch.int16), ref[t][l].view(torch.int16)
+            diff = int((a[n <= 1] != c[n <= 1]).sum())
+            assert diff == 0, f"(j) step: table {t} level {l}: {diff} single-row elements differ"
+            if not used[-1]:
+                assert torch.equal(a, loc0[t][l].view(torch.int16)), \
+                    f"(j) step: unused level {l} changed"
+    out = dict(blocks=sizes, used=used, entries=int(g_loc.shape[0]), max_abs_err=0.0)
+    if any(used):
+        (p_k, p_e, p_0, p_a, p_o), u = _levels_with(
+            [kern[0], exact[0], loc0[0], again[0], other[0]], used)
+        err, mean, sigma, worst = _check_sr(p_k, p_e, p_0, u, p_a, p_o)
+        mv, u = _levels_with(kern[1:] + exact[1:] + loc0[1:], used)
+        tie_err, ties = _check_bf16_ties(mv[0:2], mv[2:4], mv[4:6], u, moved_share=None)
+        out.update(max_abs_err=max(err, tie_err), sr_mean_ulp=mean, sr_sigma=sigma,
+                   sr_worst_bin=worst, tie_share=ties)
+    return out
+
+
+class _ShardStepHook:
+    """``adam_kernel.fused_adam_shard`` for a rank of run (j): every call
+    goes to the wrapper, and the ``at``-th (a step of the run) is then held
+    against its plain version (:func:`_shard_step_check`; ``result``)."""
+
+    def __init__(self, ak, at):
+        self.ak, self.at, self.calls, self.result = ak, at, 0, None
+        self.launch = ak.fused_adam_shard
+
+    def __call__(self, ps, ms, vs, rows_loc, g_loc, lr, bc1, bc2, scales, base, **kw):
+        self.calls += 1
+        if self.calls != self.at:
+            return self.launch(ps, ms, vs, rows_loc, g_loc, lr, bc1, bc2, scales, base, **kw)
+        assert rows_loc is None and kw.get("sr_seed") is not None, "(j): not the bf16 map mode"
+        loc0 = [[t.clone() for t in lv] for lv in (ps, ms, vs)]
+        out = self.launch(ps, ms, vs, rows_loc, g_loc, lr, bc1, bc2, scales, base, **kw)
+        kern = [[t.clone() for t in lv] for lv in (ps, ms, vs)]
+        self.result = _shard_step_check(self.ak, self.launch, kern, loc0, g_loc.clone(), lr,
+                                        bc1, bc2, scales, base, kw)
+        return out
+
+
+def _counted_batch(config_path, cfg, group=None):
+    """One rank of run (j): the batch driver with this rank's launch counts
+    zeroed just before it and written to ``cfg.output_root``'s sibling
+    ``counts/`` just after, with the check of its step
+    ``MULTIHOST_CHECK_STEP`` (:class:`_ShardStepHook`; the processes
+    launched apart run their ranks through this function;
+    :func:`_multihost_process`)."""
+    from shine_mapping_tpu_torch.cli import shine_batch
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    hook = _ShardStepHook(ak, MULTIHOST_CHECK_STEP)
+    ak.fused_adam_shard = hook
+    ak.reset_launch_counts()
+    try:
+        out = shine_batch.run_shine_mapping_batch(config_path, cfg, group=group)
+    finally:
+        ak.fused_adam_shard = hook.launch
+    counts = dict(ak.LAUNCHES)
+    d = os.path.join(os.path.dirname(cfg.output_root), "counts")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, f"rank{group.rank}.json"), "w") as f:
+        json.dump({"launches": counts, "world": group.world, "run_path": out[0],
+                   "device": str(group.device), "check": hook.result}, f)
+    return out
+
+
+def _multihost_config(world, out, **knobs):
+    """Run (j)'s config: phase 9's ``[multi] cli`` config (row-sharded tables,
+    the bf16 map mode) on phase 6's world, ``tpu.mesh_shape: 4``."""
+    return _map_config(world, out, MULTIHOST_ITERS, mesh_shape=4, table_sharding="rows",
+                       shard_ingest=True, feature_update="pallas", moments_bf16=True,
+                       batch_windows=True, params_bf16=True, **knobs)
+
+
+def _multihost_process(pid, port, world, out):
+    """One of run (j)'s two processes, launched apart: the batch driver's
+    entry point with ``tpu.num_processes: 2``, this ``process_id`` and the
+    coordinator; its local ranks count their launches (the driver spawns
+    ``run_shine_mapping_batch``, here :func:`_counted_batch`)."""
+    from shine_mapping_tpu_torch.cli import shine_batch
+
+    cfg = _multihost_config(world, out, num_processes=2, process_id=pid,
+                            coordinator=f"localhost:{port}")
+    run = shine_batch.run_shine_mapping_batch
+    shine_batch.run_shine_mapping_batch = _counted_batch  # what the driver spawns
+    run_path, grid, params = run(cfg=cfg)
+    print(f"PROCESS_DONE {pid} {run_path} {grid is None and params is None}", flush=True)
+
+
+def _fixed_sample_losses(cfg, ckpts):
+    """The training loss at 65,536 fixed pool samples of the world (one
+    process's data phase) at the driver's initial state and at each
+    checkpoint's, on the card; and each checkpoint's largest |d p| from the
+    first's."""
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.cli.common import build_grid, pool_capacity_for
+    from shine_mapping_tpu_torch.data.dataset import LiDARDataset
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.utils import checkpoint as ckpt
+
+    ds = LiDARDataset(cfg, build_grid(cfg))
+    ds.process_frames_pipelined(ds.frame_ids(), workers=4)
+    grid = ds.grid
+    s = trainer.TrainSettings.from_config(cfg, grid.levels,
+                                          n_used=trainer.used_rows_for(grid, granularity=64))
+    pool, n = trainer.pool_to_device(ds.pool, pool_capacity_for(len(ds.pool), 1 << 17),
+                                     DEVICE, settings=s)
+    k = min(65536, n)
+    fixed = torch.arange(k, device=DEVICE) * n // k
+    params = trainer.init_params(cfg, grid, torch.Generator(DEVICE).manual_seed(cfg.seed))
+    params["features"] = [f.to(torch.bfloat16).float() for f in params["features"]]
+    losses = [float(trainer.batch_loss(params, grid.tables, pool, fixed, s)["total_loss"])]
+    ps = []
+    for path in ckpts:
+        skeleton = trainer.init_params(cfg, build_grid(cfg))
+        g, p, _, _ = ckpt.load_checkpoint(path, skeleton, device=DEVICE)
+        losses.append(float(trainer.batch_loss(p, g.tables, pool, fixed, s)["total_loss"]))
+        ps.append(p["features"])
+    err = [max(float((a - b).abs().max()) for a, b in zip(ps[0], q)) for q in ps[1:]]
+    assert np.all(np.isfinite(losses)), losses
+    return losses, err
+
+
+def phase_surface_multihost(n_frames=20):
+    """Run (j): two processes launched apart form 4 ranks through the
+    config's knobs (module doc).  Returns (the ranks' launches summed, the
+    largest error of the ranks' checked K2 shard step against its plain
+    version)."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.cli.shine_batch import run_shine_mapping_batch
+    from shine_mapping_tpu_torch.parallel.mesh import free_port
+
+    n_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="smoke_surface_j_") as tmp:
+        world = os.path.join(tmp, "world")
+        _, gt_path = write_synth_sequence(world, n_frames)
+        if MAP_B not in MAP_SCORES:  # phase 6 did not run: its run B here
+            cfg_b = _map_config(world, os.path.join(tmp, "b"), 500, feature_update="pallas",
+                                moments_bf16=True, batch_windows=True, params_bf16=True)
+            _map_run(MAP_B, cfg_b, gt_path, "fused_adam_multi_bf16p", 1, 1)
+        print(f"[surface] (j) reduced: iters 500 -> {MULTIHOST_ITERS} (phase 9's [multi] cli "
+              "run; vis_freq_iters and save_freq_iters with it)")
+        two = os.path.join(tmp, "two", "runs")
+        port = free_port()
+        procs = []
+        t0 = time.perf_counter()
+        for pid in range(2):
+            env = dict(os.environ)
+            if n_cards >= 4:  # two cards a process, NCCL one rank a card
+                env["CUDA_VISIBLE_DEVICES"] = f"{2 * pid},{2 * pid + 1}"
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multihost-process", str(pid),
+                 str(port), world, two], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                env=env, start_new_session=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=900)[0].decode())
+        finally:
+            for p in procs:  # a process and the ranks it spawned, by group id
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for pid, (p, text) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"(j) process {pid} failed:\n{text[-4000:]}"
+        runs = os.listdir(two)
+        assert len(runs) == 1, f"(j) run directories {runs}: rank 0's alone expected"
+        run_path = os.path.join(two, runs[0])
+        for pid, text in enumerate(outs):
+            line = [ln for ln in text.splitlines() if ln.startswith("PROCESS_DONE")]
+            assert line and line[-1].split()[1:] == [str(pid), run_path, "True"], \
+                f"(j) process {pid}: {line}"
+        backend = "nccl" if n_cards >= 4 else "gloo"
+        assert f"4 ranks over {backend}" in outs[0], outs[0][-4000:]
+        counts = []
+        for r in range(4):
+            with open(os.path.join(tmp, "two", "counts", f"rank{r}.json")) as f:
+                counts.append(json.load(f))
+        key = "fused_adam_multi_shard_bf16p"
+        per = [c["launches"][key] for c in counts]
+        assert all(c["world"] == 4 and c["run_path"] == run_path for c in counts), counts
+        assert per == [MULTIHOST_ITERS] * 4, f"(j) {key} launches per rank {per}"
+        checks = [c["check"] for c in counts]
+        assert all(ch is not None for ch in checks), f"(j) step checks {checks}"
+        shard_err = max(ch["max_abs_err"] for ch in checks)
+        print(f"[kernels] K2 shard {key} at run (j)'s row blocks: step "
+              f"{MULTIHOST_CHECK_STEP} of each rank (blocks {checks[0]['blocks']} rows, used "
+              f"heads by rank {[ch['used'] for ch in checks]}, entries by rank "
+              f"{[ch['entries'] for ch in checks]}) against its plain version with phase 9's "
+              "bf16-p checks (single-entry rows bit-equal to the plain step with the kernel's "
+              "noise; p's rounding against the unrounded step, the same seed the same bits, "
+              "another seed not; moments one-ulp ties): max_abs_err by rank "
+              + ", ".join(f"{ch['max_abs_err']:.3e}" for ch in checks) + "; SR mean error "
+              "by rank " + ", ".join(f"{ch.get('sr_mean_ulp', 0):.2e} ulp (sigma "
+              f"{ch.get('sr_sigma', 0):.1e})" for ch in checks) + "; moment tie share by rank "
+              + ", ".join(f"{ch.get('tie_share', 0):.2e}" for ch in checks))
+        others = {k: n for c in counts for k, n in c["launches"].items()
+                  if k not in (key, "entry_prep") and n}
+        assert not others, f"(j) other kernels launched: {others}"
+        with open(os.path.join(run_path, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ms = [r["timing(s)/per_iter"] * 1e3 for r in recs]
+        from shine_mapping_tpu_torch.eval.metrics import eval_mesh
+
+        m = eval_mesh(os.path.join(run_path, f"mesh/mesh_iter_{MULTIHOST_ITERS}.ply"), gt_path,
+                      **EVAL_KW)
+        gap = abs(m["F-score (%)"] - MAP_SCORES[MAP_B])
+        print(f"[surface] (j) two processes launched apart (tpu.num_processes 2, mesh_shape 4, "
+              f"their own process_id, coordinator localhost:{port}"
+              + (", CUDA_VISIBLE_DEVICES 0,1 / 2,3" if n_cards >= 4 else ", one card") +
+              f"): 4 ranks over {backend} (devices {[c['device'] for c in counts]}), "
+              f"{MULTIHOST_ITERS} steps at {float(np.median(ms[1:] or ms)):.3f} ms/step (rank "
+              f"0's metrics.jsonl), data phase {recs[-1]['phase(s)/data']:.2f} s (sharded), "
+              f"both processes {wall:.1f} s; {key} launches per rank {per}, entry_prep "
+              f"{[c['launches']['entry_prep'] for c in counts]}; eval_mesh F-score "
+              f"{m['F-score (%)']:.3f} %, Chamfer-L1 {m['Chamfer_L1 (m)']:.4f} m (bars: < "
+              f"{MAP_BARS[0]} m, > {MAP_BARS[1]} %), {gap:.3f} points from phase 6's run B "
+              f"({MAP_SCORES[MAP_B]:.3f} %; bar 5); one run directory, rank 0's, returned by "
+              "both processes")
+        assert m["Chamfer_L1 (m)"] < MAP_BARS[0] and m["F-score (%)"] > MAP_BARS[1], m
+        assert gap <= 5.0, f"(j) {gap:.3f} points from run B"
+        # the same config spawned by one process (mesh_shape 4)
+        cfg1 = _multihost_config(world, os.path.join(tmp, "one"))
+        t0 = time.perf_counter()
+        one_path, _, _ = run_shine_mapping_batch(cfg=cfg1)
+        t_one = time.perf_counter() - t0
+        losses, err = _fixed_sample_losses(cfg1, [
+            os.path.join(one_path, "model", "model_final.npz"),
+            os.path.join(run_path, "model", "model_final.npz")])
+        before, one, two_l = losses
+        drop = before - one
+        print(f"[surface] (j) against one process spawning 4 ranks ({t_one:.1f} s): "
+              f"fixed-sample loss {before:.6f} -> {one:.6f} (one process) / {two_l:.6f} (two "
+              f"processes), within {abs(two_l - one) / drop:.4f} of the drop (phase 9's "
+              f"row-shard tolerance: 0.05); final tables max |d p| {err[0]:.3e}")
+        assert one < before and abs(two_l - one) <= 0.05 * drop, \
+            f"(j) fixed-sample loss {two_l} vs one process {one} (from {before})"
+    launches = {}
+    for c in counts:
+        for k, n in c["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, shard_err
+
+
+def _surface_batch(kitti, out, gt_path):
+    """Run (k): the batch CLI with rgbd_batch.yaml at its full width on the
+    converted room.  Returns (launch counts, grid)."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.cli.shine_batch import run_shine_mapping_batch
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+    from shine_mapping_tpu_torch.utils import profiling
+
+    iters = SURFACE_ITERS
+    cut = {"iters": iters, "vis_freq_iters": iters // 2, "save_freq_iters": iters,
+           "every_frame": 1}
+    cfg, line = surface_config(SHINEConfig, "rgbd_batch", kitti, out, cut, DEVICE)
+    print(line)
+    print(f"[surface] (k) rgbd_batch: {cfg.tree_level_feat} levels, D {cfg.feature_dim}, leaf "
+          f"{cfg.leaf_vox_size} m, world level {cfg.tree_level_world}, bs {cfg.bs}, mlp "
+          f"{cfg.geo_mlp_level}x{cfg.geo_mlp_hidden_dim}, {cfg.main_loss_type}, eikonal "
+          f"{cfg.ekional_loss_on}, octree meshing at {cfg.mc_res_m} m (query level "
+          f"{cfg.mc_query_level}), calib_path {cfg.calib_path!r} (identity Tr), device "
+          f"{cfg.device}")
+    assert (cfg.tree_level_feat, cfg.leaf_vox_size, cfg.tree_level_world, cfg.bs,
+            cfg.mc_res_m, cfg.mc_with_octree) == (4, 0.02, 12, 4096, 0.01, True)
+    levels = cfg.tree_level_feat
+    ak.reset_launch_counts()  # this path starts here
+    t0 = time.perf_counter()
+    run_path, grid, params = run_shine_mapping_batch(cfg=cfg)
+    counts = dict(ak.LAUNCHES)  # read right after the path
+    wall = time.perf_counter() - t0
+    assert counts["fused_adam"] == levels * iters and counts["entry_prep"] == levels * iters, \
+        f"(k) launches {counts}: want {levels} fused_adam and entry_prep a step"
+    others = {k: n for k, n in counts.items() if k not in ("fused_adam", "entry_prep") and n}
+    assert not others, f"(k) other kernels launched: {others}"
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss/total_loss"] for r in recs]
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], f"(k) losses {losses}"
+    ms = [r["timing(s)/per_iter"] * 1e3 for r in recs]
+    meshes = [r for r in recs if "mesh/vertices" in r]
+    peaks = profiling.last_hbm_monitor.samples
+    print(f"[surface] (k) run: data phase {recs[-1]['phase(s)/data']:.2f} s, pool "
+          f"{int(recs[-1]['pool_samples'])} samples, tables {[f.shape[0] for f in grid.features]} "
+          f"rows, corners {grid.corner_counts}; {iters} steps at "
+          f"{float(np.median(ms[1:] or ms)):.3f} ms/step (median over the {len(ms) - 1} chunks "
+          f"after the first; first {ms[0]:.3f}), fused_adam {counts['fused_adam']} launches "
+          f"({levels} a step), entry_prep {counts['entry_prep']}; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; peak device memory training {peaks['train'] / 2**30:.3f} GiB, "
+          f"meshing {peaks['mesh'] / 2**30:.3f} GiB; run {wall:.1f} s")
+    for r in meshes:
+        print(f"[surface] (k) mesh at iter {r['iter']}: {int(r['mesh/vertices'])} vertices, "
+              f"{int(r['mesh/triangles'])} triangles; meshing "
+              + ", ".join(f"{k} {r['mesh(s)/' + k]:.3f} s"
+                          for k in ("query", "readback", "marching", "finalize")))
+    print(f"[surface] (k) {_snapshots(run_path, len(meshes))} (one a mesh)")
+    m = _room_score("(k) rgbd_batch", os.path.join(run_path, f"mesh/mesh_iter_{iters}.ply"),
+                    gt_path)
+    print(f"[surface] (k) bars: Chamfer-L1 < {ROOM_BARS[0]} m, F-score > {ROOM_BARS[1]} %")
+    assert m["Chamfer_L1 (m)"] < ROOM_BARS[0] and m["F-score (%)"] > ROOM_BARS[1], \
+        f"(k) map quality under the bars: {m}"
+    return counts, grid, cfg
+
+
+def _surface_incre(kitti, out, gt_path):
+    """Run (l): the incremental CLI with rgbd_incre_reg.yaml on 5 frames of
+    the room.  Returns (launch counts, the final grid, config)."""
+    import numpy as np
+
+    from shine_mapping_tpu_torch.cli.shine_incre import run_shine_mapping_incremental
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    cfg, line = surface_incre_config(SHINEConfig, kitti, out, DEVICE)
+    print(line)
+    levels = cfg.tree_level_feat
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_path, grid, _ = run_shine_mapping_incremental(cfg=cfg)
+    counts = dict(ak.LAUNCHES)
+    wall = time.perf_counter() - t0
+    steps = ROOM_INCRE_FRAMES * cfg.iters
+    assert counts["fused_adam"] == levels * steps and counts["entry_prep"] == levels * steps, \
+        f"(l) launches {counts}: want {levels} fused_adam and entry_prep a step"
+    others = {k: n for k, n in counts.items() if k not in ("fused_adam", "entry_prep") and n}
+    assert not others, f"(l) other kernels launched: {others}"
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert len(recs) == ROOM_INCRE_FRAMES
+    assert all(np.isfinite(r["loss/total_loss"]) for r in recs)
+    reg = [r["loss/reg_loss"] for r in recs]
+    assert reg[0] == 0 and all(x > 0 for x in reg[1:]), f"(l) reg_loss by frame {reg}"
+    med = {k: float(np.median([r[f"timing(s)/{k}"] for r in recs]))
+           for k in ("preprocess", "mapping", "importance", "reconstruct")}
+    print(f"[surface] (l) run: {ROOM_INCRE_FRAMES} frames, {cfg.iters} steps a frame, pool "
+          f"{recs[-1]['pool_samples']} samples at the last, fused_adam {counts['fused_adam']} "
+          f"launches ({levels} a step), entry_prep {counts['entry_prep']}; reg_loss by frame "
+          f"{[f'{x:.3g}' for x in reg]}; per-frame medians " +
+          ", ".join(f"{k} {v:.3f} s" for k, v in med.items()) + f"; run {wall:.1f} s; "
+          f"{_snapshots(run_path, ROOM_INCRE_FRAMES)} (one a frame)")
+    last = ROOM_INCRE_EVERY * (ROOM_INCRE_FRAMES - 1) + 1
+    m = _room_score("(l) rgbd_incre_reg", os.path.join(run_path, f"mesh/mesh_frame_{last}.ply"),
+                    gt_path)
+    gap = abs(m["F-score (%)"] - JAX_ROOM_INCRE_FSCORE)
+    print(f"[surface] (l) F-score {gap:.3f} points from the JAX driver's on the CPU "
+          f"({JAX_ROOM_INCRE_FSCORE:.3f} %; bar {INCRE_FSCORE_GAP})")
+    assert gap <= INCRE_FSCORE_GAP, f"(l) {gap:.3f} points from JAX"
+    return counts, grid, cfg
+
+
+def phase_surface_kernel(run, sizes, n_used, M):
+    """[kernels] K1 at 4 levels: one ``fused_adam`` launch a level, at the
+    final tables of ``run`` ((k) or (l): ``sizes`` rows, ``n_used`` used
+    heads) and M entries a level (bs x 8 corners), against its plain
+    version with phase 2's checks plus the sum-order spread; wrapper / with
+    pre / alone / plain / library / bound ms for the step's four launches.
+    Returns the JSON entry."""
+    import numpy as np
+    import torch
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    dev, D, L = torch.device(DEVICE), 8, len(sizes)
+    lr, bc1, bc2 = 0.01, 1 - 0.9 ** 5, 1 - 0.99 ** 5
+    rng = np.random.default_rng(11)
+    tabs0, rows_l, g_l = _kernel_inputs(rng, sizes, n_used, M, D, dev)
+    single = _single_rows(rows_l, sizes, n_used)
+    kern = [[t.clone() for t in lv] for lv in tabs0]
+    ref = [[t.clone() for t in lv] for lv in tabs0]
+    for lv in range(L):
+        ak.fused_adam(kern[0][lv], kern[1][lv], kern[2][lv], rows_l[lv], g_l[lv], lr, bc1, bc2,
+                      n_used[lv])
+        ak.fused_adam_plain(ref[0][lv], ref[1][lv], ref[2][lv], rows_l[lv], g_l[lv], lr, bc1,
+                            bc2, n_used[lv])
+    torch.cuda.synchronize()
+    spreads = [_sum_order_spread([t[lv] for t in tabs0], rows_l[lv], g_l[lv], lr, bc1, bc2,
+                                 n_used[lv]) for lv in range(L)]
+    spread = [[sp[t][0] for sp in spreads] for t in range(3)]
+    err = _check_f32(kern, ref, tabs0, n_used, single=single, spread=spread)
+    share = max(_share_used(kern[t][lv], ref[t][lv],
+                            1e-5 * ref[t][lv].abs() + spread[t][lv] + min(
+                                1e-6, 1e-5 * float(tabs0[t][lv][:n_used[lv]].abs().max())))
+                for t in range(3) for lv in range(L))
+    pres = [ak.entry_prep([rows_l[lv]], [sizes[lv]], [n_used[lv]], D) for lv in range(L)]
+
+    def wrapper(pre=False):
+        for lv in range(L):
+            ak.fused_adam(kern[0][lv], kern[1][lv], kern[2][lv], rows_l[lv], g_l[lv], lr, bc1,
+                          bc2, n_used[lv], pre=pres[lv] if pre else None)
+
+    def alone():
+        for lv in range(L):
+            ak._launch("f32", [kern[0][lv]], [kern[1][lv]], [kern[2][lv]], [g_l[lv]], [0],
+                       pres[lv], [n_used[lv]], [0], [lr], 0.9, 0.99, bc1, bc2, 1e-15, False, 0)
+
+    def plain():
+        for lv in range(L):
+            ak.fused_adam_plain(ref[0][lv], ref[1][lv], ref[2][lv], rows_l[lv], g_l[lv], lr,
+                                bc1, bc2, n_used[lv])
+
+    t_wrap, t_pre = cuda_ms(wrapper), cuda_ms(lambda: wrapper(True))
+    t_alone, t_plain = cuda_ms(alone), cuda_ms(plain, iters=5)
+    t_lib = _library_ms(tabs0[0], rows_l, g_l, n_used, [lr] * L)
+    bound, by = _bound_ms(n_used, L * M, D)
+    print(f"[kernels] K1 fused_adam at {L} levels (run {run}'s tables {list(sizes)} rows, used "
+          f"{list(n_used)}, M {M} a level): max_abs_err {err:.3e} (phase 2's tolerance plus "
+          f"the sum-order spread, at most {share:.2f} of it used), bit-equal on single-entry "
+          f"rows; a step's {L} launches: wrapper {t_wrap:.4f} ms, with pre {t_pre:.4f} ms, "
+          f"kernel alone {t_alone:.4f} ms, plain {t_plain:.4f} ms, library {t_lib:.4f} ms "
+          f"(index_add_ + fused torch.optim.Adam), bound {bound:.4f} ms ({by}), "
+          f"{bound / t_alone:.0%} of bound")
+    row = dict(name="fused_adam", route="cuda", source=SOURCE, replaces=K1_TPU,
+               variant=f"f32, {L} levels, run {run}'s tables", max_abs_err=err, ms=t_wrap,
+               ms_with_pre=t_pre,
+               kernel_only_ms=t_alone, plain_ms=t_plain, bound_ms=bound, bound_by=by,
+               library_ms=t_lib)
+    del tabs0, kern, ref, pres
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_surface():
+    """Phase 11 ("surface"): run (j), processes launched apart; runs (k)
+    and (l), RGB-D mapping of the synthetic room; K1 at 4 levels against
+    its plain version at each run's final tables (module doc).  Returns
+    (K1's 4-level JSON entries of (k) and (l), each with its run's
+    launches; run (j)'s launches and its K2 shard step's error)."""
+    import tempfile
+
+    from shine_mapping_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    print(f"[surface] nvidia-smi: {nvidia_smi()}")
+    multihost = phase_surface_multihost()
+    t_j = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="smoke_surface_") as tmp:
+        kitti, gts, (t_raw, t_conv) = write_room(tmp)
+        print(f"[surface] room: {ROOM_FRAMES} frames of {ROOM_CAMERA['W']} x "
+              f"{ROOM_CAMERA['H']} (16-bit mm depth, RGB, focal {ROOM_CAMERA['focal']:.3f}) "
+              f"written in {t_raw:.1f} s, converted by python -m "
+              f"shine_mapping_tpu_torch.data.rgbd_converter in {t_conv:.1f} s; exact ground "
+              "truth of all frames and of run (l)'s")
+        shapes = {}
+        for run, go in (("(k)", lambda: _surface_batch(kitti, os.path.join(tmp, "k"),
+                                                       gts["all"])),
+                        ("(l)", lambda: _surface_incre(kitti, os.path.join(tmp, "l"),
+                                                       gts["incre"]))):
+            counts, grid, cfg = go()
+            shapes[run] = ([f.shape[0] for f in grid.features],
+                           list(trainer.used_rows_for(grid, granularity=64)), cfg.bs * 8,
+                           counts["fused_adam"])
+            del grid
+    rows = []
+    for run, (sizes, n_used, M, launches) in shapes.items():
+        rows.append(phase_surface_kernel(run, sizes, n_used, M))
+        rows[-1]["launches"] = launches
+    print(f"[surface] phase 11 took {time.perf_counter() - t0:.1f} s ((j) {t_j:.1f} s)")
+    return rows, multihost
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -3707,7 +4372,8 @@ def phase_incre_multi(per_run=None):
 ALONE = {"agreement": lambda: (phase_agreement(), phase_agreement_options()),
          "map": lambda: phase_map(), "incre": lambda: phase_incre(),
          "city": lambda: phase_city(), "multi": lambda: phase_multi(),
-         "incre-multi": lambda: phase_incre_multi()}
+         "incre-multi": lambda: phase_incre_multi(), "surface": lambda: phase_surface(),
+         "launch": lambda: phase_surface_multihost()}  # phase 11's (j) alone
 
 
 def main() -> int:
@@ -3720,6 +4386,9 @@ def main() -> int:
     import shine_mapping_tpu_torch  # noqa: F401  (fails outside a checkout)
     from shine_mapping_tpu_torch.config import SHINEConfig
 
+    if len(sys.argv) == 6 and sys.argv[1] == "--multihost-process":  # phase 11's (j)
+        _multihost_process(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        return 0
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         t_start = time.perf_counter()
         print(phase_device())
@@ -3749,15 +4418,20 @@ def main() -> int:
     # phase 10's runs (f) and (g) train in phase 9's spawn, on its bench world
     shard_rows, multi_launches, per_run = phase_multi(MULTI_RUNS + ROWS_IID_RUNS)
     _, shard_lib_ms, live_launches = phase_incre_multi(per_run)
+    surface_rows, (multihost_launches, multihost_err) = phase_surface()
     for k in kernels:  # K1/K2: counted over the training runs and the CLI runs
         k["launches"] = (launches[k["name"]] + map_launches.get(k["name"], 0)
                          + incre_launches.get(k["name"], 0) + city_launches.get(k["name"], 0)
                          + multi_launches.get(k["name"], 0) + live_launches.get(k["name"], 0))
-    for r in shard_rows:  # K2's row-sharded caller: counted over phases 9 and 10's runs
-        r["launches"] += live_launches.get(r["name"], 0)
+    for r in shard_rows:  # K2's row-sharded caller: counted over phases 9, 10 and 11's runs
+        r["launches"] += live_launches.get(r["name"], 0) + multihost_launches.get(r["name"], 0)
         if r["variant"] == "f32":
             r["library_ms"] = shard_lib_ms
+        if r["variant"] == "bf16p":  # also checked at run (j)'s row blocks
+            r["max_abs_err_run_j"] = multihost_err
+            r["max_abs_err"] = max(r["max_abs_err"], multihost_err)
     kernels += shard_rows
+    kernels += surface_rows  # K1 at 4 levels: each counted over its RGB-D run
     kernels += study  # K3-K7: counted over the kernel-study programs
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} never launched on its path"

@@ -30,70 +30,56 @@ def torch_device_of(cfg: SHINEConfig) -> torch.device:
     return device
 
 
-def check_supported(cfg: SHINEConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for the config
-    options the drivers do not run yet."""
-    if cfg.o3d_vis_on:
-        raise NotImplementedError("not ported yet, see ROADMAP.md: the visualizer, "
-                                  "o3d_vis_on (Queue A item 15)")
-
-
-def _rank_entry(rank: int, world: int, port: int, run, cfg: SHINEConfig, config_path,
-                backend, out_file: str) -> None:
-    """One spawned rank of a ``tpu.mesh_shape: n`` launch of the driver
-    ``run``."""
+def _rank_entry(i: int, launch, run, cfg: SHINEConfig, config_path, out_file: str) -> None:
+    """Local rank ``i`` of this process's ranks (``launch``, a
+    ``parallel.mesh.Launch``) running the driver ``run``; local rank 0
+    writes the run path it got from global rank 0."""
     from ..parallel import mesh as pmesh
 
-    device = pmesh.rank_device(cfg, rank)
+    device = pmesh.rank_device(cfg, i)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    pmesh.setup_distributed(cfg, backend, f"tcp://localhost:{port}", rank, world)
+    pmesh.setup_distributed(cfg, launch.backend, launch.init_method, launch.rank(i),
+                            launch.world)
     try:
         run_path, _, _ = run(config_path, cfg, group=pmesh.data_group(device))
-        if rank == 0:
+        if i == 0:
             with open(out_file, "w") as f:
                 f.write(run_path)
     finally:
         torch.distributed.destroy_process_group()
 
 
-def spawns_ranks(cfg: SHINEConfig) -> bool:
-    """Does this launch spawn its ranks (``tpu.mesh_shape`` > 1, not joined
-    to ranks launched apart)?"""
-    return cfg.mesh_shape > 1 and cfg.num_processes <= 1 and "WORLD_SIZE" not in os.environ
-
-
-def spawn_ranks(run, cfg: SHINEConfig, config_path, backend):
-    """Run the driver ``run`` on ``tpu.mesh_shape`` spawned ranks
-    (``torch.multiprocessing``, start method spawn; NCCL when there is a
-    card a rank, else gloo); rank 0's run directory (the others' artifacts
-    are rank 0's)."""
+def spawn_ranks(run, cfg: SHINEConfig, config_path, launch):
+    """Run the driver ``run`` on this process's ``launch.local`` ranks
+    (``launch``: ``parallel.mesh.launch_plan``'s; ``torch.multiprocessing``,
+    start method spawn; local rank i on ``cuda:i``, or all on the one card
+    over gloo, or the CPU); returns global rank 0's run directory (the
+    others' artifacts are rank 0's)."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    from ..parallel import mesh as pmesh
-
-    n = int(cfg.mesh_shape)
-    if backend is None:
-        cuda = torch.device(cfg.device).type == "cuda"
-        backend = "nccl" if cuda and torch.cuda.device_count() >= n else "gloo"
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/run_path"
-        mp.start_processes(_rank_entry, args=(n, pmesh.free_port(), run, cfg, config_path,
-                                              backend, out),
-                           nprocs=n, start_method="spawn", join=True)
+        mp.start_processes(_rank_entry, args=(launch, run, cfg, config_path, out),
+                           nprocs=launch.local, start_method="spawn", join=True)
         with open(out) as f:
             return f.read()
 
 
-def join_ranks(cfg: SHINEConfig, backend):
-    """This process's :class:`~..parallel.mesh.DataGroup` when the config
-    (``tpu.num_processes`` / ``coordinator`` / ``process_id``) or torchrun's
-    environment joins it to ranks launched apart, else None."""
+def join_ranks(cfg: SHINEConfig, launch, backend=None):
+    """This process's :class:`~..parallel.mesh.DataGroup` when ``launch``
+    (``parallel.mesh.launch_plan``'s, one local rank) or torchrun's
+    environment (``launch`` None) joins it to ranks launched apart, else
+    None."""
     from ..parallel import mesh as pmesh
 
-    rank, world = pmesh.setup_distributed(cfg, backend)
+    if launch is None:
+        rank, world = pmesh.setup_distributed(cfg, backend)
+    else:
+        rank, world = pmesh.setup_distributed(cfg, launch.backend, launch.init_method,
+                                              launch.rank(0), launch.world)
     if world <= 1:
         return None
     device = pmesh.rank_device(cfg, int(os.environ.get("LOCAL_RANK", rank)))

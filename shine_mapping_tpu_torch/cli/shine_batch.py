@@ -30,8 +30,13 @@ row-sharded caller, else on iid batches whose entries route live each step
 and SGD summing the routed entries by row).  ``pallas`` on rows without
 routed windows is refused, as in the JAX driver.  The ranks share the
 meshing's queries.  Rank 0 alone writes the run directory: checkpoints,
-meshes, ``metrics.jsonl``.  Not ported yet (raises NotImplementedError
-naming its ROADMAP item): the visualizer (``o3d_vis_on``, item 15).
+meshes, ``metrics.jsonl``.  ``tpu.num_processes: P`` joins P processes
+launched apart (``tpu.coordinator``, ``process_id``), each running
+``mesh_shape / P`` ranks, or one a card it sees (``parallel.mesh.launch_plan``);
+unlike the JAX driver, whose every process writes a ``_rank{k}`` run
+directory, the other processes write nothing.  ``eval.o3d_vis_on`` renders
+a snapshot of each mesh into ``run_path/vis`` (``visualizer.MapVisualizer``
+without Open3D; rank 0).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_batch <config.yaml>
@@ -40,6 +45,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
@@ -59,9 +65,9 @@ from ..utils import profiling
 from ..utils.experiment import get_time, setup_experiment
 from ..utils.metrics_logger import MetricsLogger
 from ..utils.profiling import HbmMonitor, PhaseTimer, device_trace
+from ..visualizer import MapVisualizer
 from .common import (
     build_grid,
-    check_supported,
     event_boundaries,
     join_ranks,
     maybe_load_model,
@@ -69,7 +75,6 @@ from .common import (
     pool_capacity_for,
     seed_for,
     spawn_ranks,
-    spawns_ranks,
     sync_features_to_grid,
     torch_device_of,
 )
@@ -114,11 +119,11 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                      "Try: python -m shine_mapping_tpu_torch.cli.shine_batch xxx_config.yaml")
         cfg = SHINEConfig().load(config_path)
     torch_device_of(cfg)  # raises here when the card is asked for and absent
-    check_supported(cfg)
     if group is None:
-        if spawns_ranks(cfg):
-            return spawn_ranks(run_shine_mapping_batch, cfg, config_path, backend), None, None
-        group = join_ranks(cfg, backend)
+        launch = pmesh.launch_plan(cfg, backend)
+        if launch is not None and launch.local > 1:
+            return spawn_ranks(run_shine_mapping_batch, cfg, config_path, launch), None, None
+        group = join_ranks(cfg, launch, backend)
     if group is not None and group.world == 1:
         group = None
     device = torch_device_of(cfg) if group is None else group.device
@@ -138,6 +143,10 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
     # data phase so new frames grow the restored structure
     grid, loaded_decoders, freeze, loaded_opt, start_iter = maybe_load_model(cfg, grid)
     dataset = LiDARDataset(cfg, grid)
+    # without Open3D the visualizer renders offscreen PNG frames into the
+    # run directory instead of opening a window
+    vis = (MapVisualizer(snapshot_dir=os.path.join(run_path, "vis"))
+           if cfg.o3d_vis_on and primary else None)
 
     # ---------------------------------------------------------------- data phase
     say("Load, preprocess and sample data")
@@ -387,6 +396,8 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
                         mesh = mesher.recon_bbx_mesh(dataset.map_bbx, cfg.mc_res_m,
                                                      mesh_path, map_path, cfg.save_map,
                                                      cfg.semantic_on)
+                if vis is not None and ts is None:
+                    vis.update_mesh(mesh)
             peak = hbm.sample("mesh")
             if mesh is not None:  # rank 0's
                 rec.update({"mesh/vertices": mesh.vertices.shape[0],
@@ -414,6 +425,8 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
     say(f"peak device memory: {hrep['peak_live_gb']} GiB {hrep['samples_gb']}")
     if logger is not None:
         logger.close()
+    if vis is not None:
+        vis.stop()
     return run_path, grid, params
 
 

@@ -17,9 +17,10 @@ when ``tpu.batch_windows`` and ``windows_fused`` ask for them and they fit
 ``pallas``.  ``tpu.params_bf16`` is not read, as in the JAX driver.
 
 Several ranks (JAX shine_incre.py:64-66, :128-178): ``tpu.mesh_shape: n``
-spawns n ranks, ``tpu.num_processes`` or torchrun's environment joins ranks
-launched apart (``cli.common.spawn_ranks`` / ``join_ranks``, as the batch
-driver).  Every rank processes every frame and trains its share of each
+spawns n ranks; ``tpu.num_processes: P`` joins P processes launched apart,
+each running ``mesh_shape / P`` ranks or one a card it sees, and torchrun's
+environment one rank a process (``cli.common.spawn_ranks`` / ``join_ranks``,
+as the batch driver).  Every rank processes every frame and trains its share of each
 batch.  Per frame the grown tables, a fresh Adam state and the shadow
 tables are placed again (``parallel.mesh.place_training_state``):
 ``tpu.table_sharding: replicated`` keeps them whole (pool lookups and fused
@@ -28,9 +29,9 @@ sum), ``rows`` cuts each rank's row blocks again, which train on iid
 batches routed live each step (no windows, as in JAX) and are gathered
 whole after the frame.  The importance sweep splits its batches over the
 ranks, the meshing its queries; rank 0 alone writes ``metrics.jsonl``,
-the meshes and ``model_final.npz``.  Not ported yet (raises
-NotImplementedError naming its ROADMAP item): the visualizer
-(``o3d_vis_on``, item 15).
+the meshes and ``model_final.npz``.  ``eval.o3d_vis_on`` renders each
+frame's scan, pose and latest mesh into ``run_path/vis``
+(``visualizer.MapVisualizer`` without Open3D; rank 0).
 
 Usage:
     python -m shine_mapping_tpu_torch.cli.shine_incre <config.yaml>
@@ -39,6 +40,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -57,16 +59,15 @@ from ..utils import profiling
 from ..utils.experiment import get_time, setup_experiment
 from ..utils.metrics_logger import MetricsLogger
 from ..utils.profiling import HbmMonitor
+from ..visualizer import MapVisualizer
 from .common import (
     build_grid,
-    check_supported,
     join_ranks,
     maybe_load_model,
     pool_capacity_for,
     refresh_params_features,
     seed_for,
     spawn_ranks,
-    spawns_ranks,
     sync_features_to_grid,
     torch_device_of,
 )
@@ -94,12 +95,12 @@ def run_shine_mapping_incremental(config_path: str | None = None,
                      "Try: python -m shine_mapping_tpu_torch.cli.shine_incre xxx_config.yaml")
         cfg = SHINEConfig().load(config_path)
     device = torch_device_of(cfg)
-    check_supported(cfg)
     if group is None:
-        if spawns_ranks(cfg):
-            return (spawn_ranks(run_shine_mapping_incremental, cfg, config_path, backend),
+        launch = pmesh.launch_plan(cfg, backend)
+        if launch is not None and launch.local > 1:
+            return (spawn_ranks(run_shine_mapping_incremental, cfg, config_path, launch),
                     None, None)
-        group = join_ranks(cfg, backend)
+        group = join_ranks(cfg, launch, backend)
     if group is not None and group.world == 1:
         group = None
     dp = group is not None
@@ -122,6 +123,10 @@ def run_shine_mapping_incremental(config_path: str | None = None,
     # a saved model restore
     grid, loaded_decoders, freeze, _, _ = maybe_load_model(cfg, grid)
     dataset = LiDARDataset(cfg, grid)
+    # without Open3D the visualizer renders offscreen PNG frames into the
+    # run directory instead of opening a window
+    vis = (MapVisualizer(snapshot_dir=os.path.join(run_path, "vis"))
+           if cfg.o3d_vis_on and primary else None)
 
     params = trainer.init_params(cfg, grid, torch.Generator(device).manual_seed(cfg.seed))
     if loaded_decoders:
@@ -210,17 +215,19 @@ def run_shine_mapping_incremental(config_path: str | None = None,
             hbm.sample("importance")
         T2 = get_time(device)
 
+        cur_mesh = None  # rank 0's mesh of this frame
         if processed_frame == 0 or (processed_frame + 1) % cfg.mesh_freq_frame == 0:
             say("Begin mesh reconstruction from the implicit map")
             mesh_path = f"{run_path}/mesh/mesh_frame_{frame_id + 1}.ply"
             map_path = f"{run_path}/map/sdf_map_frame_{frame_id + 1}.ply"
             if cfg.mc_with_octree:
-                mesher.recon_octree_mesh(cfg.mc_query_level, cfg.mc_res_m, mesh_path,
-                                         map_path, cfg.save_map, cfg.semantic_on)
+                cur_mesh = mesher.recon_octree_mesh(cfg.mc_query_level, cfg.mc_res_m,
+                                                    mesh_path, map_path, cfg.save_map,
+                                                    cfg.semantic_on)
             else:
                 bbx = dataset.cur_bbx if cfg.mc_local else dataset.map_bbx
-                mesher.recon_bbx_mesh(bbx, cfg.mc_res_m, mesh_path, map_path,
-                                      cfg.save_map, cfg.semantic_on)
+                cur_mesh = mesher.recon_bbx_mesh(bbx, cfg.mc_res_m, mesh_path, map_path,
+                                                 cfg.save_map, cfg.semantic_on)
             hbm.sample("mesh")
         T3 = get_time(device)
 
@@ -239,6 +246,8 @@ def run_shine_mapping_incremental(config_path: str | None = None,
             logger.log(rec)
         say(f"frame {frame_id}: loss {rec['loss/total_loss']:.4f} "
             f"pre {T1 - T0:.2f}s map {T2 - T1:.2f}s recon {T3 - T2:.2f}s")
+        if vis is not None:
+            vis.update(dataset.cur_frame_pc, dataset.cur_pose_ref, cur_mesh)
 
     # the grid holds the last frame's trained tables (synced after its chunk)
     ckpt.save_checkpoint(f"{run_path}/model/model_final.npz", grid, params,
@@ -246,6 +255,8 @@ def run_shine_mapping_incremental(config_path: str | None = None,
     say(f"peak device memory: {hbm.report()['peak_live_gb']} GiB")
     if logger is not None:
         logger.close()
+    if vis is not None:
+        vis.stop()
     return run_path, grid, params
 
 

@@ -18,13 +18,19 @@ group and a gloo side group for host data) takes the mesh's place:
   :func:`place_routed_windows`) bring each rank the rows its samples read
   and the gradients of its rows.
 
-The backend is the caller's: NCCL where each rank has a card of its own,
-gloo where ranks share a card or run on the CPU.
+The ranks of a launch (:func:`launch_plan`): ``tpu.num_processes: P``
+counts processes, as JAX's hosts, each running its local ranks (``mesh_shape
+/ P``, or one a card it sees), so the world is every card of every process
+as JAX's mesh is every device; one process of ``mesh_shape`` ranks; or
+torchrun's one rank a process.  The backend is the caller's: NCCL where
+each rank has a card of its own, gloo where ranks share a card or run on
+the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import socket
 from typing import Any, Dict, Optional, Tuple
@@ -68,6 +74,83 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# How long a rank waits for the others, to join and in every collective
+# after (init_process_group's timeout is the group's): ranks of processes
+# that disagree on their counts fail after it rather than hang, and so does
+# a rank left waiting in a collective while another does host work alone
+# for longer (gloo's own default is 30 minutes, NCCL's 10)
+JOIN_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """Where this process's ranks come from: ``local`` ranks a process,
+    ``processes`` processes, this one ``process_id``; global rank
+    ``process_id x local + i`` for local rank i; all meet at
+    ``init_method``."""
+
+    process_id: int
+    processes: int
+    local: int
+    init_method: str
+    backend: str
+
+    @property
+    def world(self) -> int:
+        return self.processes * self.local
+
+    def rank(self, i: int) -> int:
+        return self.process_id * self.local + i
+
+
+def launch_plan(cfg, backend: Optional[str] = None) -> Optional[Launch]:
+    """The ranks of a launch through the config's knobs (JAX
+    ``setup_distributed``: ``tpu.num_processes`` counts processes, each
+    driving all of its cards; the mesh spans every card of every process).
+
+    * ``tpu.num_processes: P`` > 1: each process runs L local ranks, L =
+      ``tpu.mesh_shape / P`` when ``mesh_shape`` > 1 (the global rank count,
+      as JAX's device count), else the cards this process sees, else 1 on
+      the CPU; they meet at ``tcp://{tpu.coordinator}``;
+    * else torchrun's ``RANK`` / ``WORLD_SIZE`` (one rank a process): None,
+      :func:`setup_distributed` joins them;
+    * else ``tpu.mesh_shape: n`` > 1: one process of n ranks on a free
+      localhost port;
+    * else None (one rank).
+
+    ``backend`` defaults to NCCL when every local rank has a card, else
+    gloo.  Raises ValueError, before any group forms, for a config that
+    cannot be met: no coordinator or process id, a ``mesh_shape`` that is
+    not a multiple of P, NCCL asked for with fewer cards than local ranks."""
+    n = int(getattr(cfg, "num_processes", 0) or 0)
+    shape = int(getattr(cfg, "mesh_shape", 1) or 1)
+    cuda = torch.device(cfg.device).type == "cuda"
+    cards = torch.cuda.device_count() if cuda else 0
+    if n > 1:
+        pid = int(getattr(cfg, "process_id", -1))
+        coord = getattr(cfg, "coordinator", "") or ""
+        if not 0 <= pid < n or not coord:
+            raise ValueError("tpu.num_processes > 1 needs tpu.process_id and "
+                             f"tpu.coordinator (host:port), process_id in 0 .. {n - 1}")
+        if shape > 1 and shape % n:
+            raise ValueError(f"tpu.mesh_shape {shape} (the global rank count) is not a "
+                             f"multiple of tpu.num_processes {n}")
+        local = shape // n if shape > 1 else max(cards, 1)
+        init = f"tcp://{coord}"
+    elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return None
+    elif shape > 1:
+        pid, n, local, init = 0, 1, shape, f"tcp://localhost:{free_port()}"
+    else:
+        return None
+    if backend is None:
+        backend = "nccl" if cuda and cards >= local else "gloo"
+    if backend == "nccl" and cards < local:
+        raise ValueError(f"NCCL takes one card a rank: {local} local ranks, {cards} "
+                         "cards in this process")
+    return Launch(pid, n, local, init, backend)
+
+
 def setup_distributed(cfg, backend: Optional[str] = None, init_method: Optional[str] = None,
                       rank: Optional[int] = None, world: Optional[int] = None
                       ) -> Tuple[int, int]:
@@ -75,23 +158,25 @@ def setup_distributed(cfg, backend: Optional[str] = None, init_method: Optional[
     ``setup_distributed``, parallel/mesh.py:32-86).
 
     Where the ranks come from: ``rank`` / ``world`` / ``init_method`` given
-    (the spawning driver's), else the config's ``tpu.num_processes`` /
-    ``coordinator`` (``host:port``) / ``process_id``, else torchrun's
-    ``RANK`` / ``WORLD_SIZE`` (with ``MASTER_ADDR`` / ``MASTER_PORT``).  One
-    process and no group: (0, 1), nothing initialised.  ``backend`` defaults
-    to NCCL on the card and gloo on the CPU; a group already initialised
-    (by the caller) is taken as it is."""
+    (a spawned rank's, :class:`Launch`), else the config's knobs when they
+    give this process one rank (:func:`launch_plan`; several local ranks
+    are spawned by ``cli.common.spawn_ranks``, ValueError here), else
+    torchrun's ``RANK`` / ``WORLD_SIZE`` (with ``MASTER_ADDR`` /
+    ``MASTER_PORT``).  One process and no group: (0, 1), nothing
+    initialised.  ``backend`` defaults to NCCL on the card and gloo on the
+    CPU; a group already initialised (by the caller) is taken as it is.
+    The group waits :data:`JOIN_TIMEOUT` for a rank, to join and in every
+    collective."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if world is None:
-        n = int(getattr(cfg, "num_processes", 0) or 0)
-        if n > 1:
-            world, rank = n, int(getattr(cfg, "process_id", -1))
-            coord = getattr(cfg, "coordinator", "") or ""
-            if rank < 0 or not coord:
-                raise ValueError("tpu.num_processes > 1 needs tpu.process_id and "
-                                 "tpu.coordinator (host:port)")
-            init_method = f"tcp://{coord}"
+        plan = launch_plan(cfg, backend)
+        if plan is not None:
+            if plan.local > 1:
+                raise ValueError(f"this launch runs {plan.local} ranks a process: spawn them "
+                                 "(cli.common.spawn_ranks)")
+            world, rank, init_method, backend = plan.world, plan.rank(0), plan.init_method, \
+                plan.backend
         elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
             world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
             init_method = "env://"
@@ -102,7 +187,7 @@ def setup_distributed(cfg, backend: Optional[str] = None, init_method: Optional[
     if backend is None:
         backend = "nccl" if torch.device(cfg.device).type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=init_method, rank=int(rank),
-                            world_size=int(world))
+                            world_size=int(world), timeout=JOIN_TIMEOUT)
     return dist.get_rank(), dist.get_world_size()
 
 

@@ -101,6 +101,32 @@ def test_single_level_kernel_matches_plain(cuda_device, n_used):
 
 
 @pytest.mark.cuda
+def test_single_level_kernel_at_four_levels_matches_plain(cuda_device):
+    """K1 as the RGB-D configs run it (config/rgbd: 4 feature levels), one
+    launch a level a step: four tables of their own sizes and used heads,
+    each step held against the plain version, bit-equal on rows with at
+    most one entry."""
+    rng = np.random.default_rng(11)
+    sizes, n_used = (32768, 16384, 8192, 4096), (30000, 12000, 8192, 1500)
+    tabs, rows_l, g_l = _tables_and_entries(rng, sizes, n_used, 8192, cuda_device)
+    plain, kern = _on(tabs, cuda_device), _on(tabs, cuda_device)
+    before = ak.LAUNCHES["fused_adam"]
+    for lv in range(4):
+        ak.fused_adam_plain(*(t[lv] for t in plain), rows_l[lv], g_l[lv], LR, BC1, BC2,
+                            n_used[lv])
+        ak.fused_adam(*(t[lv] for t in kern), rows_l[lv], g_l[lv], LR, BC1, BC2, n_used[lv])
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_adam"] == before + 4
+    _assert_close_and_moved(kern, plain, tabs, n_used)
+    for lv, (C, nu) in enumerate(zip(sizes, n_used)):
+        r = rows_l[lv].long()
+        keep = (r >= 0) & (r < nu) & (r != C - 1)
+        single = torch.bincount(r[keep], minlength=C) <= 1
+        for k in range(3):
+            assert torch.equal(kern[k][lv][single], plain[k][lv][single])
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_raises_on_what_it_does_not_take(cuda_device):
     p = torch.zeros(64, D, device=cuda_device)
     rows = torch.zeros(4, dtype=torch.int32, device=cuda_device)

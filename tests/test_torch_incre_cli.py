@@ -234,8 +234,9 @@ def test_incre_needs_a_card_unless_the_config_says_cpu(world, tmp_path, monkeypa
     (dict(time_conditioned=True), None),
 ], ids=["o3d_vis_on", "data-parallel", "multi-host", "time_conditioned"])
 def test_incre_unported_options_raise(world, tmp_path, monkeypatch, kw, item):
-    """The visualizer still raises naming its ROADMAP item.  The options
-    that raised before they were ported now run through: ``mesh_shape: 2``
+    """The options that raised before they were ported now run through:
+    ``o3d_vis_on`` renders a snapshot of each frame into ``run_path/vis``
+    (the visualizer without Open3D; 2 frames), ``mesh_shape: 2``
     spawns two ranks of the driver (their runs are
     tests/test_torch_dist_incre.py's), ``num_processes: 2`` joins ranks
     launched apart and asks for their coordinator (ValueError without it),
@@ -247,8 +248,10 @@ def test_incre_unported_options_raise(world, tmp_path, monkeypatch, kw, item):
 
     root, _ = world
     if item == "item 15":
-        with pytest.raises(NotImplementedError, match=item):
-            run_shine_mapping_incremental(cfg=port_cfg(root, str(tmp_path), "reg", **kw))
+        cfg = port_cfg(root, str(tmp_path), "reg", end_frame=1, iters=20, **kw)
+        run_path, _, _ = run_shine_mapping_incremental(cfg=cfg)
+        assert sorted(os.listdir(os.path.join(run_path, "vis"))) == ["vis_0000.png",
+                                                                     "vis_0001.png"]
         return
     if item is not None:
         with pytest.raises(ValueError, match=item):

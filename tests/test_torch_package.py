@@ -35,7 +35,7 @@ def test_port_imports_without_jax():
               "utils.experiment", "utils.metrics_logger", "cli.common", "cli.shine_batch",
               "cli.shine_incre", "train.importance", "train.sparse_adam",
               "ops.marching", "ops.native_build", "parallel", "parallel.mesh",
-              "parallel.comm", "parallel.ingest"):
+              "parallel.comm", "parallel.ingest", "visualizer", "data.rgbd_converter"):
         assert "shine_mapping_tpu_torch." + m in mods, m
     code = (
         "import sys\n"
@@ -52,6 +52,39 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_lazy_top_level_names_resolve_without_jax():
+    """``shine_mapping_tpu_torch.{Mesher, HashGridHost, LiDARDataset,
+    MapVisualizer}``, as the JAX package exports them lazily, on a host
+    where jax cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'shine_mapping_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import shine_mapping_tpu_torch as p\n"
+        "names = ['Mesher', 'HashGridHost', 'LiDARDataset', 'MapVisualizer']\n"
+        "assert all(n in p.__all__ for n in names)\n"
+        "print(' '.join(getattr(p, n).__module__ for n in names))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [
+        "shine_mapping_tpu_torch.mesher", "shine_mapping_tpu_torch.ops.hashgrid",
+        "shine_mapping_tpu_torch.data.dataset", "shine_mapping_tpu_torch.visualizer"]
+    with pytest.raises(AttributeError):
+        shine_mapping_tpu_torch.NotAName  # noqa: B018
+
+
+def test_every_jax_module_has_a_twin():
+    """Every module of the JAX package has one of the same name in the port."""
+    import shine_mapping_tpu
+
+    jax_mods = {m.name.split(".", 1)[1] for m in pkgutil.walk_packages(
+        shine_mapping_tpu.__path__, "shine_mapping_tpu.")}
+    port = {m.split(".", 1)[1] for m in _port_modules()}
+    assert not jax_mods - port, sorted(jax_mods - port)
 
 
 def test_no_port_module_imports_the_jax_package():
