@@ -28,11 +28,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    without a precomputed entry prep, kernel alone), the plain version's, a
    PyTorch library yardstick where one call computes the same step
    (``index_add_`` + fused ``torch.optim.Adam``, f32 only) and the
-   bandwidth bound.  Where the parent commit's fused_adam.cu (with this
-   commit's C interface) was copied to
+   bandwidth bound.  Where the parent commit's fused_adam.cu was copied to
    ``shine_mapping_tpu_torch/csrc/build/parent/`` (git-ignored), its kernel
    is built too and timed beside the new one in turns (old, new, new, old)
-   on the same inputs, and its stochastic-rounding bits compared;
+   on the same inputs, through its own C interface (no work list), and its
+   stochastic-rounding bits compared.  Then the hot case: K1's per-level
+   step in one launch on two levels of 1,024 used rows taking 32,768
+   entries each, one level's all on one row (the work list splits every
+   tile), against the per-level plain steps (phase 2's tolerance plus the
+   sum-order spread, bit-equal on single-entry rows), its times beside the
+   parent's two launches in turns;
 2b. kernel study: each kernel of the JAX round's kernel studies against
    its plain version at the study scripts' bench shapes (tables of
    4,194,304 rows of 8, 65,536 sorted entries; a (262,144, 128) table and
@@ -59,8 +64,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bench.py's ``build_bench_world`` (seed 0, 400k-point surface band, ~3M
    corners per level, 2M-sample pool), six paths, launch counts zeroed
    before and read after each: 200 steps with the multi-level update (one
-   launch per step) and 50 with the per-level update (one per level per
-   step) on iid batches; then pool lookups + epoch windows (W = 245): 200
+   launch per step) and 50 with the per-level update (one prep and one
+   launch per step over the levels, each with its lr) on iid batches; then
+   pool lookups + epoch windows (W = 245): 200
    steps of f32 tables and moments on fused windows (K2), 200 of the bf16
    map mode on the same windows (bf16 tables and moments, K2 with
    stochastic rounding), 50 of bf16 moments on per-level windows (K1) and
@@ -93,8 +99,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 7. incre: the port's incremental CLI (``cli.shine_incre``) with continual
    learning on phase 6's world, launch counts zeroed before and read after
    each run.  Run C: ``config/maicity/maicity_incre_reg.yaml`` as written
-   (bs 4096, 50 steps a frame, lambda 1e6, live probes, K1 per level with
-   the reg folded into its entries, the importance sweep after each frame,
+   (bs 4096, 50 steps a frame, lambda 1e6, live probes, K1's per-level
+   step (one launch a step over the levels) with the reg folded into its
+   entries, the importance sweep after each frame,
    a dense-bbx mesh every 5 frames); run D: ``maicity_incre_replay.yaml``
    (bs 8192, eikonal, window replay, K1); run E: run C on per-frame fused
    windows with the reg's owner flags and bf16 moments (K2), the work-ratio
@@ -106,7 +113,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and the final mesh's F-score within 5 points of the JAX driver's on the
    CPU (``JAX_INCRE_FSCORE``).  After run C, card = CPU on its final state:
    the importance sweep, then 5 reg steps with every K1 launch held against
-   its plain version;
+   its plain version, and the tables after them against the CPU's at rtol
+   1e-4 plus the allowance each step's sum-order spread carries through
+   Adam (``_CarriedAllowance``; its largest share used is printed);
 8. city: semantic mapping at street scale through the batch CLI on
    tests/synth_city.py's labelled city (seed 0, 150 frames of 1,024 x 48
    rays, 8 x 3 blocks, parked and moving cars, a turn), with
@@ -193,20 +202,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    shine_mapping_tpu_torch.data.rgbd_converter``.  (k) The batch CLI with
    ``config/rgbd/rgbd_batch.yaml`` at its full width (4 levels, D 8, leaf
    0.02 m, world level 12, bs 4096, 2x32 MLP, sdf_bce, octree meshing at
-   0.01 m) and ``o3d_vis_on``, 2,000 steps: 4 K1 launches a step (and their
-   live preps) and no other kernel, the loss falling, Chamfer-L1 < 1 cm and
+   0.01 m) and ``o3d_vis_on``, 2,000 steps: one K1 launch a step over the 4
+   levels (and its live prep) and no other kernel, the loss falling, Chamfer-L1 < 1 cm and
    the F-score at 2 cm > 90 % against the ground truth, one non-blank
    snapshot a mesh in ``run_path/vis``.  (l) The incremental CLI with
    ``rgbd_incre_reg.yaml`` on 5 overlapping frames of the room: the reg
    after frame 0, one snapshot a frame, the F-score within 5 points of the JAX driver's
    on the CPU (``JAX_ROOM_INCRE_FSCORE``).  Cuts on ``[surface] reduced:``
-   lines.  ``[kernels]`` K1 at 4 levels at run (k)'s final tables and at
-   run (l)'s, each against its plain version (phase 2's checks plus the
-   sum-order spread) with wrapper / with-pre / alone / plain / library /
+   lines.  ``[kernels]`` K1 at 4 levels in one launch at run (k)'s final
+   tables and at run (l)'s, each against the per-level plain steps (phase
+   2's checks plus the sum-order spread) with the step's call / with-pre /
+   alone / the parent's four launches alone in turns / plain / library /
    bound ms, and each a JSON row of its own with its run's launches.
-   ``--only agreement,city`` (any of agreement, map, incre, city, multi,
-   incre-multi, surface, and launch: phase 11's (j) alone) runs those phases
-   alone and prints no result line.
+   ``--only agreement,city`` (any of kernels: phase 2 without 2b,
+   agreement, map, incre, city, multi, incre-multi, surface, and launch:
+   phase 11's (j) alone) runs those phases alone and prints no result
+   line.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -594,12 +605,44 @@ def _check_sr(p_out, p_exact, p0, n_used, p_again, p_other):
 def _parent_lib():
     """The parent commit's fused_adam.cu library, when the source was copied
     to PARENT_DIR (git-ignored; the command that measures old beside new
-    puts it there) with this commit's interface, else None."""
+    puts it there), else None; :func:`_launch_parent` speaks its interface,
+    the one without the work list."""
     from shine_mapping_tpu_torch.ops import cuda_build
 
     if not os.path.exists(os.path.join(PARENT_DIR, "fused_adam.cu")):
         return None
     return cuda_build.load("fused_adam", PARENT_DIR, PARENT_DIR)
+
+
+def _launch_parent(lib, variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2,
+                   bc1, bc2, eps, grads_bf16=False, seed=0, row_base=None, det=False):
+    """One launch of the parent commit's fused_adam.cu (``lib``:
+    :func:`_parent_lib`) through its own C interface, which has no work
+    list: one CTA a tile, on ``pre``'s tile offsets; not counted."""
+    import ctypes
+
+    import torch
+
+    from shine_mapping_tpu_torch.ops import adam_kernel as ak
+
+    ex = row_base is not None or det
+    name = ak._C_ENTRY[variant]
+    fn = getattr(lib, name.replace("fused_adam_", "fused_adam_ex_") if ex else name)
+    fn.argtypes = ak._ARGTYPES + (ak._EX_ARGTYPES if ex else [])
+    fn.restype = ctypes.c_int
+    L = len(offs)
+    P = ctypes.c_void_p * L
+    args = [P(*[t.data_ptr() for t in ps]), P(*[t.data_ptr() for t in ms]),
+            P(*[t.data_ptr() for t in vs]), P(*[t.data_ptr() for t in gs]),
+            (ctypes.c_longlong * L)(*ent_off), pre.rows.data_ptr(), pre.order.data_ptr(),
+            pre.tile_off.data_ptr(), ps[0].shape[1], pre.tb, L, (ctypes.c_longlong * L)(*offs),
+            (ctypes.c_longlong * L)(*n_used), (ctypes.c_float * L)(*lrs), b1, b2, 1.0 - b1,
+            1.0 - b2, float(bc1), float(bc2), eps, int(bool(grads_bf16)),
+            int(seed) & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream]
+    if ex:
+        args += [(ctypes.c_longlong * L)(*(row_base or [0] * L)), int(bool(det))]
+    err = fn(*args)
+    assert err == 0, f"parent fused_adam launch failed: CUDA error {err}"
 
 
 def _in_turns(old, new, timer=cuda_ms):
@@ -780,8 +823,9 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
         t_parent = None
         if parent is not None:
             def old(ts=kern):
-                ak._launch(variant, *ts, gl, ent_off[:levels], pre, nu, offs[:levels], lrs,
-                           0.9, 0.99, bc1, bc2, 1e-15, kw["grads_bf16"], seed, lib=parent)
+                _launch_parent(parent, variant, *ts, gl, ent_off[:levels], pre, nu,
+                               offs[:levels], lrs, 0.9, 0.99, bc1, bc2, 1e-15,
+                               kw["grads_bf16"], seed)
 
             t_parent, t_kern = _in_turns(old, new)
             if variant == "bf16p":  # the same keying: the same bits, but where the two
@@ -827,6 +871,10 @@ def phase_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=65536)
     case("bf16p", 3)
     del tabs0
     torch.cuda.empty_cache()
+    # the hot case: two levels of 1,024 used rows, 32,768 entries each, the
+    # second's all on one row (the work list splits every tile)
+    rows_json.append(phase_surface_kernel("phase 2's hot case", [1 << 16] * 2, [1024] * 2,
+                                          32768, one_row=1))
     return rows_json
 
 
@@ -1183,7 +1231,7 @@ def build_bench_world(cfg, device, n_surf=400_000, n_pool=2_000_000, seed=0):
 # bf16 tables)
 RUNS = (
     ("multi-level (K2)", "fused_adam_multi", 1, 200, True, None, False, False),
-    ("per-level (K1)", "fused_adam", 3, 50, False, None, False, False),
+    ("per-level (K1)", "fused_adam", 1, 50, False, None, False, False),
     ("f32, fused windows (K2)", "fused_adam_multi", 1, 200, False, "fused", False, False),
     ("bf16 map mode (K2, bf16 tables + SR)", "fused_adam_multi_bf16p", 1, 200, False,
      "fused", True, True),
@@ -1283,6 +1331,12 @@ def phase_train(cfg, n_surf=400_000, n_pool=2_000_000):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         assert counts[key] == steps * per_step, f"{key}: {counts[key]} launches, " \
             f"want {steps * per_step}"
+        # every step steps every level: K1 in one launch over all of them on
+        # iid batches (fused_adam_levels) or one a level on per-level
+        # windows, K2 in one
+        L = len(grid.levels)
+        assert ak.LEVEL_STEPS[key] == steps * L, \
+            f"{key}: {ak.LEVEL_STEPS[key]} level steps, want {steps * L}"
         # the entry prep: live before every update launch, or once per
         # windows build (per prep of the layout)
         preps = steps * per_step if windows is None else (1 if windows == "fused" else 3)
@@ -1456,8 +1510,9 @@ OPTION_CASES = (
 
 
 class _KernelCheck:
-    """While active, every K1 (``fused_adam``) and K2 (``fused_adam_multi``)
-    launch on CUDA tensors is held against its plain version on the same
+    """While active, every K1 (``fused_adam``, ``fused_adam_levels``) and K2
+    (``fused_adam_multi``) launch on CUDA tensors is held against its plain
+    version on the same
     inputs: phase 2's tolerance plus each element's sum-order spread
     (:func:`_sum_order_spread`, the card's atomics sum a row's entries in no
     fixed order), bit-equal on rows with at most one entry, headroom
@@ -1467,10 +1522,10 @@ class _KernelCheck:
         from shine_mapping_tpu_torch.ops import adam_kernel as ak
 
         self.ak, self.n, self.err = ak, 0, 0.0
-        self.inner = (ak.fused_adam, ak.fused_adam_multi)
+        self.inner = (ak.fused_adam, ak.fused_adam_multi, ak.fused_adam_levels)
 
     def __enter__(self):
-        ak, (k1, k2) = self.ak, self.inner
+        ak, (k1, k2, k1l) = self.ak, self.inner
 
         def one(p, m, v, rows, grads, lr, bc1, bc2, n_used=None, **kw):
             return self._check([p], [m], [v], [rows], [grads], lr, bc1, bc2, [1.0],
@@ -1483,11 +1538,17 @@ class _KernelCheck:
                                lambda: k2(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales,
                                           n_used, **kw))
 
-        ak.fused_adam, ak.fused_adam_multi = one, multi
+        def levels(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used=None, **kw):
+            nu = [p.shape[0] for p in ps] if n_used is None else list(n_used)
+            return self._check(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, nu, kw,
+                               lambda: k1l(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales,
+                                           n_used, **kw))
+
+        ak.fused_adam, ak.fused_adam_multi, ak.fused_adam_levels = one, multi, levels
         return self
 
     def __exit__(self, *exc):
-        self.ak.fused_adam, self.ak.fused_adam_multi = self.inner
+        self.ak.fused_adam, self.ak.fused_adam_multi, self.ak.fused_adam_levels = self.inner
 
     def _check(self, ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used, kw, launch):
         import torch
@@ -1685,7 +1746,8 @@ def phase_agreement_options(steps=20, cases=OPTION_CASES):
         if over.get("feature_update") in ("sparse", "dense") or not over.get("opt_adam", True):
             assert not kernels, f"{label}: kernels launched: {kernels}"
         if (over.get("semantic_on") or over.get("consistency_loss_on")) and DEVICE != "cpu":
-            assert kc.n == n_steps * (1 if layout else 3), f"{label}: {kc.n} launches checked"
+            # one launch a step: K2 on fused windows, K1's per-level step in one
+            assert kc.n == n_steps, f"{label}: {kc.n} launches checked"
             checked[label] = (kc.n, kc.err)
         print(f"[agreement] {label}, {n_steps} steps: card loss {ac['total_loss']:.6f} vs CPU "
               f"{ap['total_loss']:.6f} (" + ", ".join(f"{k} {ac[k]:.5g}" for k in ac
@@ -1794,6 +1856,8 @@ def _map_run(label, cfg, gt_path, launch_key, per_step, preps):
     wall = time.perf_counter() - t0
     assert counts[launch_key] == cfg.iters * per_step, \
         f"{label}: {counts[launch_key]} {launch_key} launches, want {cfg.iters * per_step}"
+    assert ak.LEVEL_STEPS[launch_key] == cfg.iters * cfg.tree_level_feat, \
+        f"{label}: {ak.LEVEL_STEPS[launch_key]} level steps"  # every level, every step
     assert counts["entry_prep"] == preps, f"{label}: {counts['entry_prep']} preps, want {preps}"
     others = {k: n for k, n in counts.items() if k not in (launch_key, "entry_prep") and n}
     assert not others, f"other kernels launched during {label}: {others}"
@@ -1894,10 +1958,11 @@ def phase_map(n_frames=20, iters_a=1500, iters_b=500, n_az=1024, n_el=64):
         print(f"[map] synthetic world: {n_frames} frames of {n_el} x {n_az} rays, {n_pts} "
               f"points, ground truth 200k points, written in {time.perf_counter() - t0:.1f} s")
         # run A: the ICRA config as written (iid batches, pool lookups, K1
-        # per level with its live entry prep) and dense-bbx meshing
+        # per level: one live entry prep and one launch a step over the 3
+        # levels) and dense-bbx meshing
         cfg = _map_config(os.path.join(tmp, "world"), os.path.join(tmp, "a"), iters_a)
         run_path, grid, params, counts = _map_run(
-            "run A (ICRA config, K1)", cfg, gt_path, "fused_adam", 3, 3 * iters_a)
+            "run A (ICRA config, K1)", cfg, gt_path, "fused_adam", 1, iters_a)
         launches.update(counts)
         _map_checkpoint_roundtrip(cfg, run_path, grid, params, gt_path)
         _map_agreement(cfg, grid, params)
@@ -1920,8 +1985,8 @@ def phase_map(n_frames=20, iters_a=1500, iters_b=500, n_az=1024, n_el=64):
 # (label, config, tpu knobs, the work-ratio gate forced open, the update's
 # launch key, its launches per step)
 INCRE_RUNS = (
-    ("C", "config/maicity/maicity_incre_reg.yaml", {}, False, "fused_adam", 3),
-    ("D", "config/maicity/maicity_incre_replay.yaml", {}, False, "fused_adam", 3),
+    ("C", "config/maicity/maicity_incre_reg.yaml", {}, False, "fused_adam", 1),
+    ("D", "config/maicity/maicity_incre_replay.yaml", {}, False, "fused_adam", 1),
     ("E", "config/maicity/maicity_incre_reg.yaml",
      {"feature_update": "pallas", "moments_bf16": True, "batch_windows": True}, True,
      "fused_adam_multi_bf16m", 1),
@@ -2027,6 +2092,8 @@ def _incre_run(run, world, out, gt_path, n_frames):
     preps = n_frames if open_gate else steps * per_step  # window stacks, or live
     assert counts[key] == steps * per_step, \
         f"run {label}: {counts[key]} {key} launches, want {steps * per_step}"
+    assert ak.LEVEL_STEPS[key] == steps * cfg.tree_level_feat, \
+        f"run {label}: {ak.LEVEL_STEPS[key]} level steps"  # every level, every step
     assert counts["entry_prep"] == preps, f"run {label}: {counts['entry_prep']} preps"
     others = {k: n for k, n in counts.items() if k not in (key, "entry_prep") and n}
     assert not others, f"other kernels launched during run {label}: {others}"
@@ -2068,6 +2135,118 @@ def _incre_run(run, world, out, gt_path, n_frames):
     return counts, cfg, grid, params
 
 
+# the card's own gradient entries may differ from the CPU's by this many
+# ulps of each entry before the sum (see _CarriedAllowance)
+ENTRY_ULPS = 32
+
+
+class _CarriedAllowance:
+    """How far a run's tables may drift, step by step, from another run of
+    the same steps on other hardware, per element: the sum-order spread of
+    each step carried through Adam's recurrences.
+
+    A step sums each row's k entries g_i.  Two runs part there by at most
+
+        s = (2 gamma_{k-1} + c u) sum |g_i|
+            + 2 lambda ((imp + |d imp|) A_p + |d imp| |p - last|)   (reg rows)
+
+    u = 2^-24, gamma_j = j u / (1 - j u).  The first term is the sum order:
+    any order of k terms lies within gamma_{k-1} sum |g_i| of the exact
+    sum, so two orders within twice that (``_sum_order_spread``'s shift).
+    The second covers the card's own entries, which reach the sum a few
+    ulps away from the CPU's: an entry is a trilinear weight (three
+    differences and two products, ~5 roundings) times the decoder's
+    backward into a feature lane, a 32-term sum over the hidden units
+    (cuBLAS and the CPU sum it in other orders: gamma_31 of its terms'
+    magnitudes), so c = ENTRY_ULPS = 32 ulps of each entry.  The third is
+    the continual reg folded into a row's owner entry, 2 lambda imp (p -
+    last): it moves by 2 lambda imp times the drift A_p of p carried from
+    the steps before, and by the importance's own card-vs-CPU difference
+    (``d imp``, measured by the sweep's check) times |p - last|; at lambda
+    1e6 both are many ulps of the entry.
+
+    Through Adam (m' = b1 m + (1 - b1) g, v' = b2 v + (1 - b2) g^2, p' = p -
+    lr (m' / bc1) / (sqrt(v' / bc2) + eps)), to first order:
+
+        A_m,t = b1 A_m,t-1 + (1 - b1) s_t
+        A_v,t = b2 A_v,t-1 + (1 - b2) (2 |g_t| s_t + s_t^2)
+        A_p,t = A_p,t-1 + max over the four corners (m' +- A_m,t, v' +- A_v,t)
+                of |step(corner) - step(m', v')|
+
+    (the step is monotone in m' and in v', so the corners bound it; this
+    also holds each step's own p spread).  m', v', g_t are the plain
+    version's on the card's inputs, in float64.  An end state within rtol,
+    atol and A of the other run's is what both runs can reach; the check
+    adds A to the tolerance it had and widens nothing else."""
+
+    u = 2.0 ** -24
+
+    def __init__(self, b1=0.9, b2=0.99, entry_ulps=ENTRY_ULPS):
+        self.b1, self.b2, self.c = b1, b2, entry_ulps
+        self.A = {}  # level -> [A_p, A_m, A_v], (C, D) float64
+        self.entry_terms = []  # per step and level: s less its sum-order term
+
+    def step(self, level, t0, plain, rows, grads, lr, bc1, bc2, n_used, eps, reg=None):
+        """Carry level ``level``'s allowance through one step: ``t0`` the
+        step's input tables [p, m, v], ``plain`` the plain version's outputs
+        on them, ``rows``, ``grads`` its entries; ``reg``: (lambda, imp, d
+        imp, last frame) of the continual reg, or None."""
+        import torch
+
+        C, D = t0[0].shape
+        dev = t0[0].device
+        r, g = rows.reshape(-1).long(), grads.reshape(-1, D).double()
+        keep = (r >= 0) & (r < n_used) & (r != C - 1)
+        r, g = r[keep], g[keep]
+        k = torch.bincount(r, minlength=C).double()[:, None]
+        abs_sum = torch.zeros((C, D), dtype=torch.float64, device=dev).index_add_(0, r, g.abs())
+        g_sum = torch.zeros((C, D), dtype=torch.float64, device=dev).index_add_(0, r, g)
+        km1 = (k - 1).clamp(min=0)
+        gamma = km1 * self.u / (1 - km1 * self.u)
+        entry = self.c * self.u * abs_sum
+        A_p, A_m, A_v = self.A.get(level, [torch.zeros((C, D), dtype=torch.float64,
+                                                       device=dev) for _ in range(3)])
+        if reg is not None:
+            lam, imp, dimp, last = (x if isinstance(x, float) else x.double() for x in reg)
+            feed = 2 * lam * ((imp + dimp) * A_p + dimp * (t0[0].double() - last).abs())
+            entry = entry + torch.where(k > 0, feed, 0.0)
+        self.entry_terms.append(entry.cpu())
+        shift = 2 * gamma * abs_sum + entry
+        A_m = self.b1 * A_m + (1 - self.b1) * shift
+        A_v = self.b2 * A_v + (1 - self.b2) * (2 * g_sum.abs() * shift + shift * shift)
+        m, v = plain[1].double(), plain[2].double()
+
+        def upd(m_, v_):
+            return lr * (m_ / bc1) / (torch.sqrt(v_.clamp(min=0) / bc2) + eps)
+
+        base = upd(m, v)
+        dp = torch.zeros_like(base)
+        for sm in (-1, 1):
+            for sv in (-1, 1):
+                dp = torch.maximum(dp, (upd(m + sm * A_m, v + sv * A_v) - base).abs())
+        head = torch.arange(C, device=dev)[:, None] < n_used  # rows past it never move
+        A_p = A_p + torch.where(head, dp, 0.0)
+        self.A[level] = [A_p, torch.where(head, A_m, 0.0), torch.where(head, A_v, 0.0)]
+
+
+def _end_state_check(name, a, b, atol, allow, rtol=1e-4):
+    """``a`` against ``b`` (same device) within atol + rtol |b| plus the
+    carried ``allow`` (float64).  Returns (the largest share of it used,
+    the elements past atol + rtol |b| alone); raises AssertionError on any
+    element past it all."""
+    d = (a.double() - b.double()).abs()
+    tol = atol + rtol * b.double().abs()
+    full = tol + allow
+    bad = ~(d <= full)
+    worst = int((d / full).reshape(-1).argmax())
+    assert not bad.any(), (
+        f"{name}: {int(bad.sum())} of {d.numel()} elements past rtol {rtol:g}, atol {atol:.3g} "
+        f"and the carried allowance; worst |d| {float(d.reshape(-1)[worst]):.4g}, at most "
+        f"{float(full.reshape(-1)[worst]):.4g} allowed there (carried "
+        f"{float(allow.reshape(-1)[worst]):.4g})")
+    return float((d / full).max()), int((d > tol).sum())
+
+
 def _incre_agreement(cfg, grid, params, n_frames, steps=5):
     """Card = CPU on run C's final state and its last frame's pool: the
     importance sweep (rtol 1e-5, atol 1e-6 of each table's largest value,
@@ -2077,14 +2256,19 @@ def _incre_agreement(cfg, grid, params, n_frames, steps=5):
     order than the CPU's; measured 1-6 of 524,288 elements off, by up to
     1.8e-3 of their value and 1.2e-5 of the largest), then 5 reg steps at
     adam_eps 1e-3 (so the step is a smooth function of the gradient, as in
-    phase 5) on the same batches: p and the decoders rtol 1e-4, atol 1e-5;
-    m and v rtol 1e-4 with an atol of 1e-6 of the table's largest value (at least 1e-5: the reg gradients reach
-    2 lambda imp |p - last|).  On the card every K1 launch of those steps is
-    held against its plain version on the same inputs at phase 2's
-    tolerance plus each element's sum-order spread (:func:`_sum_order_spread`:
-    at lambda 1e6 a row's reg and loss gradients nearly cancel, and the
-    card's atomics sum them in no fixed order; no share of the head needs
-    to move: a fresh Adam state leaves untouched rows in place)."""
+    phase 5) on the same batches.  On the card every K1 launch of those
+    steps (one a step over the 3 levels) is held against its plain version
+    on the same inputs, level by level, at phase 2's tolerance plus each
+    element's sum-order spread (:func:`_sum_order_spread`: at lambda 1e6 a
+    row's reg and loss gradients nearly cancel, and the card's atomics sum
+    them in no fixed order; no share of the head needs to move: a fresh
+    Adam state leaves untouched rows in place).  After the 5 steps: the
+    decoders rtol 1e-4, atol 1e-5; the tables p at rtol 1e-4, atol 1e-5, m
+    and v at rtol 1e-4 with an atol of 1e-6 of the table's largest value
+    (at least 1e-5: the reg gradients reach 2 lambda imp |p - last|), each
+    plus the allowance that each step's spread leaves after the steps
+    (:class:`_CarriedAllowance`, built from the card's launches: the
+    card's steps keep the atomics the real run uses)."""
     import copy
 
     import numpy as np
@@ -2134,64 +2318,118 @@ def _incre_agreement(cfg, grid, params, n_frames, steps=5):
 
     n = sides["cpu"][3]
     idx = torch.from_numpy(np.random.default_rng(9).integers(0, n, (steps, cfg.bs)))
-    kernel_err, inner = [0.0, 0, 0, 0.0], ak.fused_adam
+    kernel_err, inner = [0.0, 0, 0, 0.0], ak.fused_adam_levels
+    carried = _CarriedAllowance()
+    g_card = sides["card"][0]
+    reg = [(float(cfg.lambda_forget), imp,
+            (imp - b.to(imp.device)).abs(), last)
+           for imp, b, last in zip(g_card.importance_weight, sides["cpu"][0].importance_weight,
+                                   g_card.features_last_frame)]
 
-    def checked(p, m, v, rows, grads, lr, bc1, bc2, n_used=None, **kw):
-        t0 = [x.clone() for x in (p, m, v)]
-        out = inner(p, m, v, rows, grads, lr, bc1, bc2, n_used, **kw)
-        plain = [x.clone() for x in t0]
-        ak.fused_adam_plain(*plain, rows, grads, lr, bc1, bc2, n_used, **kw)
-        single = _single_rows([rows], [p.shape[0]], [n_used])
-        spread = _sum_order_spread(t0, rows, grads, lr, bc1, bc2, n_used, **kw)
-        _check_f32([[p], [m], [v]], [[x] for x in plain], [[x] for x in t0], [n_used],
-                   single=single, moved_share=None, scale_of="after", spread=spread)
-        for a, b, (sp,) in zip((p, m, v), plain, spread):  # v reaches ~1e13 here
-            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            kernel_err[0] = max(kernel_err[0], rel)
-            allow = min(1e-6, 1e-5 * float(b[:n_used].abs().max())) + 1e-5 * b.abs()
-            kernel_err[2] += int(((a - b).abs() > allow).sum())  # needed their spread
-            kernel_err[3] = max(kernel_err[3], _share_used(a, b, allow + sp))
+    def checked(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used=None, **kw):
+        t0s = [[x.clone() for x in lv] for lv in (ps, ms, vs)]
+        out = inner(ps, ms, vs, rows_l, g_l, lr, bc1, bc2, lr_scales, n_used, **kw)
+        step = {k: kw[k] for k in ("eps", "grads_bf16") if k in kw}
+        for l, (p, m, v, rows, grads) in enumerate(zip(ps, ms, vs, rows_l, g_l)):
+            lr_l, nu = lr * lr_scales[l], n_used[l]
+            t0 = [x[l] for x in t0s]
+            plain = [x.clone() for x in t0]
+            ak.fused_adam_plain(*plain, rows, grads, lr_l, bc1, bc2, nu, **step)
+            single = _single_rows([rows], [p.shape[0]], [nu])
+            spread = _sum_order_spread(t0, rows, grads, lr_l, bc1, bc2, nu, **step)
+            _check_f32([[p], [m], [v]], [[x] for x in plain], [[x] for x in t0], [nu],
+                       single=single, moved_share=None, scale_of="after", spread=spread)
+            for a, b, (sp,) in zip((p, m, v), plain, spread):  # v reaches ~1e13 here
+                rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                kernel_err[0] = max(kernel_err[0], rel)
+                allow = min(1e-6, 1e-5 * float(b[:nu].abs().max())) + 1e-5 * b.abs()
+                kernel_err[2] += int(((a - b).abs() > allow).sum())  # needed their spread
+                kernel_err[3] = max(kernel_err[3], _share_used(a, b, allow + sp))
+            carried.step(l, t0, plain, rows, grads, lr_l, bc1, bc2, nu, step["eps"], reg[l])
         kernel_err[1] += 1
+        entries["card"].append([(r.cpu(), x.cpu()) for r, x in zip(rows_l, g_l)])
         return out
+
+    entries = {"card": [], "cpu": []}
+
+    def recorded(ps, ms, vs, rows_l, g_l, *a, **kw):
+        entries["cpu"].append([(r.clone(), x.clone()) for r, x in zip(rows_l, g_l)])
+        return inner(ps, ms, vs, rows_l, g_l, *a, **kw)
 
     out = {}
     for side, (g, p, pool, n) in sides.items():
         shadow = {"importance": g.importance_weight, "last_frame": g.features_last_frame}
-        ak.fused_adam = checked if side == "card" else inner
+        ak.fused_adam_levels = checked if side == "card" else recorded
         try:
             p, opt, aux = trainer.train_chunk(p, init_opt_state(p), g.tables, pool, n, 0, None,
                                               s, steps, batch_indices=idx, shadow=shadow)
         finally:
-            ak.fused_adam = inner
+            ak.fused_adam_levels = inner
         out[side] = (p, opt, float(aux["mean"]["reg_loss"]), float(aux["mean"]["total_loss"]))
     (pc, oc, rc, lc), (pp, op, rp, lp) = out["card"], out["cpu"]
     np.testing.assert_allclose(rc, rp, rtol=1e-5)
     np.testing.assert_allclose(lc, lp, rtol=1e-5)
     used = {"p": 0.0, "m": 0.0, "v": 0.0, "decoder": 0.0}
-    for a, b in zip(pc["features"], pp["features"]):
-        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
-        used["p"] = max(used["p"], _share_used(a.cpu(), b, 1e-5 + 1e-4 * b.abs()))
-    for name in ("m", "v"):
-        for a, b in zip(getattr(oc, name)["features"], getattr(op, name)["features"]):
+    past = {"p": 0, "m": 0, "v": 0}
+    for l, (a, b) in enumerate(zip(pc["features"], pp["features"])):
+        share, n_past = _end_state_check(f"p[{l}]", a.cpu(), b, 1e-5, carried.A[l][0].cpu())
+        used["p"], past["p"] = max(used["p"], share), past["p"] + n_past
+    for k, name in ((1, "m"), (2, "v")):
+        for l, (a, b) in enumerate(zip(getattr(oc, name)["features"],
+                                       getattr(op, name)["features"])):
             atol = max(1e-5, 1e-6 * float(b.abs().max()))
-            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=atol)
-            used[name] = max(used[name], _share_used(a.cpu(), b, atol + 1e-4 * b.abs()))
+            share, n_past = _end_state_check(f"{name}[{l}]", a.cpu(), b, atol,
+                                             carried.A[l][k].cpu())
+            used[name], past[name] = max(used[name], share), past[name] + n_past
     for k, b in pp["geo"].state_dict().items():
         a = pc["geo"].state_dict()[k].cpu()
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
         used["decoder"] = max(used["decoder"], _share_used(a, b, 1e-5 + 1e-4 * b.abs()))
-    assert kernel_err[1] == 3 * steps, kernel_err
+    assert kernel_err[1] == steps, kernel_err
+    # what the card's entries did differ from the CPU's: per row and lane,
+    # the sum of the entries' differences, in ulps of the sum of their
+    # magnitudes and as a share of the allowance's entry term (ENTRY_ULPS
+    # ulps plus the reg's terms); a share above 1 is a row the term misses
+    ulps, shares = [], []
+    terms = iter(carried.entry_terms)
+    for sc, sp in zip(entries["card"], entries["cpu"]):
+        for l, ((rc_, gc), (rp_, gp)) in enumerate(zip(sc, sp)):
+            assert torch.equal(rc_, rp_), "the card's batches hit other rows"
+            term = next(terms)
+            C, r = term.shape[0], rp_.reshape(-1).long()
+            keep = (r >= 0) & (r < C - 1)
+            dsum = torch.zeros(term.shape, dtype=torch.float64).index_add_(
+                0, r[keep], (gc.double() - gp.double()).reshape(r.shape[0], -1)[keep].abs())
+            asum = torch.zeros_like(dsum).index_add_(
+                0, r[keep], gp.double().reshape(r.shape[0], -1)[keep].abs())
+            hit = asum > 0
+            ulps.append((dsum / (_CarriedAllowance.u * asum).clamp(min=1e-300))[hit])
+            shares.append((dsum / term.clamp(min=1e-300))[hit])
+    ulps, shares = torch.cat(ulps), torch.cat(shares)
+
+    def q(x):
+        return float(torch.sort(x).values[int(0.9999 * (x.numel() - 1))])
+
+    print(f"[agreement] incremental reg: the card's entries vs the CPU's, per row and lane, "
+          f"sum |d g| in ulps of sum |g|: median {float(ulps.median()):.2f}, 99.99th "
+          f"percentile {q(ulps):.2f}, largest {float(ulps.max()):.2f}; as a share of the "
+          f"allowance's entry term ({ENTRY_ULPS} ulps and the reg's): 99.99th percentile "
+          f"{q(shares):.3f}, largest {float(shares.max()):.3f}")
     print(f"[agreement] incremental reg (run C's final state, its last frame's "
           f"{len(ds.pool)} samples): importance card vs CPU max |d| {imp_err:.3e}, "
           f"{imp_share:.6f} of the elements within rtol 1e-5 (card "
           f"{t['card']:.3f} s, CPU {t['cpu']:.3f} s); {steps} reg steps (lambda "
           f"{cfg.lambda_forget:g}) reg_loss {rc:.6g} vs {rp:.6g}, parameters and moments "
-          f"agree (largest share of their tolerance used: "
+          f"agree at rtol 1e-4 plus the carried sum-order allowance (entries {ENTRY_ULPS} "
+          f"ulps; largest share used: "
           + ", ".join(f"{k} {x:.3f}" for k, x in used.items())
-          + f"); the {kernel_err[1]} K1 launches vs their plain versions: max |d| "
-          f"{kernel_err[0]:.3e} of each table's largest value, at phase 2's tolerance "
-          f"plus the sum-order spread ({kernel_err[2]} elements past phase 2's tolerance "
-          f"alone; largest share of the allowance used {kernel_err[3]:.3f})")
+          + "; elements past rtol 1e-4 alone: "
+          + ", ".join(f"{k} {x}" for k, x in past.items())
+          + f"); the {kernel_err[1]} K1 launches ({len(pc['features'])} levels each) vs "
+          f"their plain versions: max |d| {kernel_err[0]:.3e} of each table's largest value, "
+          f"at phase 2's tolerance plus the sum-order spread ({kernel_err[2]} elements past "
+          f"phase 2's tolerance alone; largest share of the allowance used "
+          f"{kernel_err[3]:.3f})")
 
 
 def phase_incre(n_frames=20, n_az=1024, n_el=64):
@@ -2847,13 +3085,19 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
                 t_wrap = cuda_ms(lambda: ak.fused_adam_shard(*tim, None, g_loc, lr, bc1, bc2,
                                                              scales, base, pre=pre, **kw))
 
-                def alone():
-                    ak._launch(variant, *tim, [g_loc] * 3, [0] * 3, pre, [b] * 3,
-                               [0, b, 2 * b], lrs, 0.9, 0.99, bc1, bc2, 1e-15,
-                               kw["grads_bf16"], 7, row_base=base)
+                def alone(lib=None):
+                    args = (variant, *tim, [g_loc] * 3, [0] * 3, pre, [b] * 3, [0, b, 2 * b],
+                            lrs, 0.9, 0.99, bc1, bc2, 1e-15, kw["grads_bf16"], 7)
+                    if lib is None:
+                        ak._launch(*args, row_base=base)
+                    else:
+                        _launch_parent(lib, *args, row_base=base)
 
+                parent = _parent_lib()
+                t_par, t_alone = ((None, graph_ms(alone)) if parent is None else
+                                  _in_turns(lambda: alone(parent), alone, graph_ms))
                 scratch = [[t.clone() for t in lv] for lv in loc0]
-                times.append(dict(wrapper=t_wrap, alone=graph_ms(alone),
+                times.append(dict(wrapper=t_wrap, alone=t_alone, parent=t_par,
                                   plain=cuda_ms(lambda: ak.fused_adam_shard_plain(
                                       *scratch, None, g_loc, lr, bc1, bc2, scales, base,
                                       pre=pre, **kw), iters=3),
@@ -2894,7 +3138,10 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
                          else "operations")
             entry[n] = dict(ms=tm["wrapper"], kernel_only_ms=tm["alone"], plain_ms=tm["plain"],
                             bound_ms=bound, bound_by=by, max_abs_err=max(errs),
+                            parent_kernel_ms=tm["parent"],
                             shard_kernel_ms=[round(x["alone"], 4) for x in times])
+            par = ("" if tm["parent"] is None else
+                   f"the parent's {tm['parent']:.4f} ms (in turns), ")
             print(f"[kernels] K2 shard fused_adam_multi_shard{ak._SUFFIX[variant]} ({n} shards "
                   f"of {b} rows x 3 levels, entries per shard {[x['m_sh'] for x in times]} "
                   f"incl. ~10% pads): each shard vs plain max_abs_err {max(errs):.3e} (phase 2's "
@@ -2902,7 +3149,7 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
                   f", {n} shards concatenated = unsharded K2 (single-entry rows bit-equal, "
                   + ("p, m and v one-ulp ties" if variant == "bf16p" else _SHARD_CHECKS[variant])
                   + f"); fullest shard {worst}: wrapper {tm['wrapper']:.4f} ms, kernel alone "
-                  f"{tm['alone']:.4f} ms (all shards {entry[n]['shard_kernel_ms']}), plain "
+                  f"{tm['alone']:.4f} ms (all shards {entry[n]['shard_kernel_ms']}), {par}plain "
                   f"{tm['plain']:.4f} ms, library none, bound {bound:.4f} ms ({by}), "
                   f"{bound / tm['alone']:.0%} of bound")
             del blocks
@@ -2915,8 +3162,9 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
                                                                   e4["max_abs_err"]),
             ms=e2["ms"], kernel_only_ms=e2["kernel_only_ms"], plain_ms=e2["plain_ms"],
             bound_ms=e2["bound_ms"], bound_by=e2["bound_by"], library_ms=None,
-            shards=shard_counts[0], ms_4_shards=e4["ms"],
-            kernel_only_ms_4_shards=e4["kernel_only_ms"], bound_ms_4_shards=e4["bound_ms"]))
+            parent_kernel_ms=e2["parent_kernel_ms"], shards=shard_counts[0],
+            ms_4_shards=e4["ms"], kernel_only_ms_4_shards=e4["kernel_only_ms"],
+            parent_kernel_ms_4_shards=e4["parent_kernel_ms"], bound_ms_4_shards=e4["bound_ms"]))
         del whole, t0
         torch.cuda.empty_cache()
     return rows_json
@@ -3531,13 +3779,19 @@ def phase_live_shard_kernel(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000)
                 continue
             tim = [[t.clone() for t in lv] for lv in t0]
 
-            def alone():
-                ak._launch("f32", *tim, [g_loc] * L, [0] * L, pre, [b] * L,
-                           [l * b for l in range(L)], lrs, 0.9, 0.99, bc1, bc2, 1e-15, False, 0,
-                           row_base=base)
+            def alone(lib=None):
+                args = ("f32", *tim, [g_loc] * L, [0] * L, pre, [b] * L,
+                        [l * b for l in range(L)], lrs, 0.9, 0.99, bc1, bc2, 1e-15, False, 0)
+                if lib is None:
+                    ak._launch(*args, row_base=base)
+                else:
+                    _launch_parent(lib, *args, row_base=base)
 
+            parent = _parent_lib()
+            t_par, t_alone = ((None, graph_ms(alone)) if parent is None else
+                              _in_turns(lambda: alone(parent), alone, graph_ms))
             m_real = sum(int(r.shape[0]) for r, _ in per)
-            t = dict(k=k, alone=graph_ms(alone),
+            t = dict(k=k, alone=t_alone, parent=t_par,
                      wrapper=cuda_ms(lambda: ak.fused_adam_shard(*tim, None, g_loc, lr, bc1,
                                                                  bc2, scales, base, pre=pre)),
                      prep=cuda_ms(lambda: ak.entry_prep_shard(rows_list, [b] * L, D)),
@@ -3564,7 +3818,9 @@ def phase_live_shard_kernel(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000)
           f"plus the sum-order spread; bf16 moments one-ulp ties; single-entry rows bit-equal); "
           f"fullest shard {worst['k']} ({worst['m_real']} entries in {worst['m_sh']} slots): "
           f"prep {worst['prep']:.4f} ms (sorted prep {worst['sorted_prep']:.4f}), wrapper "
-          f"{worst['wrapper']:.4f} ms, kernel alone {worst['alone']:.4f} ms, plain "
+          f"{worst['wrapper']:.4f} ms, kernel alone {worst['alone']:.4f} ms"
+          + ("" if worst["parent"] is None else
+             f" (the parent's {worst['parent']:.4f} ms, in turns)") + ", plain "
           f"{worst['plain']:.4f} ms, library (index_add_ + fused torch.optim.Adam over the "
           f"blocks) {worst['library']:.4f} ms, bound {bound:.4f} ms (bytes), "
           f"{bound / worst['alone']:.0%} of bound")
@@ -4175,8 +4431,10 @@ def _surface_batch(kitti, out, gt_path):
     run_path, grid, params = run_shine_mapping_batch(cfg=cfg)
     counts = dict(ak.LAUNCHES)  # read right after the path
     wall = time.perf_counter() - t0
-    assert counts["fused_adam"] == levels * iters and counts["entry_prep"] == levels * iters, \
-        f"(k) launches {counts}: want {levels} fused_adam and entry_prep a step"
+    assert counts["fused_adam"] == iters and counts["entry_prep"] == iters, \
+        f"(k) launches {counts}: want one fused_adam and one entry_prep a step"
+    assert ak.LEVEL_STEPS["fused_adam"] == levels * iters, \
+        f"(k) {ak.LEVEL_STEPS['fused_adam']} level steps: want {levels} a step"
     others = {k: n for k, n in counts.items() if k not in ("fused_adam", "entry_prep") and n}
     assert not others, f"(k) other kernels launched: {others}"
     with open(os.path.join(run_path, "metrics.jsonl")) as f:
@@ -4191,7 +4449,8 @@ def _surface_batch(kitti, out, gt_path):
           f"rows, corners {grid.corner_counts}; {iters} steps at "
           f"{float(np.median(ms[1:] or ms)):.3f} ms/step (median over the {len(ms) - 1} chunks "
           f"after the first; first {ms[0]:.3f}), fused_adam {counts['fused_adam']} launches "
-          f"({levels} a step), entry_prep {counts['entry_prep']}; loss {losses[0]:.4f} -> "
+          f"(one a step over the {levels} levels), entry_prep {counts['entry_prep']}; loss "
+          f"{losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; peak device memory training {peaks['train'] / 2**30:.3f} GiB, "
           f"meshing {peaks['mesh'] / 2**30:.3f} GiB; run {wall:.1f} s")
     for r in meshes:
@@ -4226,8 +4485,10 @@ def _surface_incre(kitti, out, gt_path):
     counts = dict(ak.LAUNCHES)
     wall = time.perf_counter() - t0
     steps = ROOM_INCRE_FRAMES * cfg.iters
-    assert counts["fused_adam"] == levels * steps and counts["entry_prep"] == levels * steps, \
-        f"(l) launches {counts}: want {levels} fused_adam and entry_prep a step"
+    assert counts["fused_adam"] == steps and counts["entry_prep"] == steps, \
+        f"(l) launches {counts}: want one fused_adam and one entry_prep a step"
+    assert ak.LEVEL_STEPS["fused_adam"] == levels * steps, \
+        f"(l) {ak.LEVEL_STEPS['fused_adam']} level steps: want {levels} a step"
     others = {k: n for k, n in counts.items() if k not in ("fused_adam", "entry_prep") and n}
     assert not others, f"(l) other kernels launched: {others}"
     with open(os.path.join(run_path, "metrics.jsonl")) as f:
@@ -4240,7 +4501,8 @@ def _surface_incre(kitti, out, gt_path):
            for k in ("preprocess", "mapping", "importance", "reconstruct")}
     print(f"[surface] (l) run: {ROOM_INCRE_FRAMES} frames, {cfg.iters} steps a frame, pool "
           f"{recs[-1]['pool_samples']} samples at the last, fused_adam {counts['fused_adam']} "
-          f"launches ({levels} a step), entry_prep {counts['entry_prep']}; reg_loss by frame "
+          f"launches (one a step over the {levels} levels), entry_prep {counts['entry_prep']}; "
+          f"reg_loss by frame "
           f"{[f'{x:.3g}' for x in reg]}; per-frame medians " +
           ", ".join(f"{k} {v:.3f} s" for k, v in med.items()) + f"; run {wall:.1f} s; "
           f"{_snapshots(run_path, ROOM_INCRE_FRAMES)} (one a frame)")
@@ -4254,13 +4516,17 @@ def _surface_incre(kitti, out, gt_path):
     return counts, grid, cfg
 
 
-def phase_surface_kernel(run, sizes, n_used, M):
-    """[kernels] K1 at 4 levels: one ``fused_adam`` launch a level, at the
-    final tables of ``run`` ((k) or (l): ``sizes`` rows, ``n_used`` used
-    heads) and M entries a level (bs x 8 corners), against its plain
-    version with phase 2's checks plus the sum-order spread; wrapper / with
-    pre / alone / plain / library / bound ms for the step's four launches.
-    Returns the JSON entry."""
+def phase_surface_kernel(where, sizes, n_used, M, one_row=None):
+    """[kernels] K1's per-level step as the trainer's per-level branch issues
+    it (``fused_adam_levels``: one entry prep and one launch over the
+    levels, each level's lr) at ``where``'s tables (run (k)'s or (l)'s
+    final tables at 4 levels; phase 2's hot case): ``sizes`` rows,
+    ``n_used`` used heads, M entries a level (bs x 8 corners; level
+    ``one_row``'s all on one row), against the per-level plain steps with
+    phase 2's checks plus the sum-order spread; ms of the step's call, with
+    a precomputed prep, the kernel alone (CUDA-graph replay), the parent's
+    per-level launches alone in turns (where its source was copied in),
+    plain, library and bound.  Returns the JSON entry."""
     import numpy as np
     import torch
 
@@ -4268,18 +4534,26 @@ def phase_surface_kernel(run, sizes, n_used, M):
 
     dev, D, L = torch.device(DEVICE), 8, len(sizes)
     lr, bc1, bc2 = 0.01, 1 - 0.9 ** 5, 1 - 0.99 ** 5
+    scales = [1.0] * L
+    lrs = [lr * x for x in scales]
     rng = np.random.default_rng(11)
     tabs0, rows_l, g_l = _kernel_inputs(rng, sizes, n_used, M, D, dev)
+    if one_row is not None:  # its entries all on one row, the trashbin's kept
+        r = rows_l[one_row]
+        rows_l[one_row] = torch.where(r == sizes[one_row] - 1, r, n_used[one_row] // 2)
     single = _single_rows(rows_l, sizes, n_used)
     kern = [[t.clone() for t in lv] for lv in tabs0]
     ref = [[t.clone() for t in lv] for lv in tabs0]
-    for lv in range(L):
-        ak.fused_adam(kern[0][lv], kern[1][lv], kern[2][lv], rows_l[lv], g_l[lv], lr, bc1, bc2,
-                      n_used[lv])
-        ak.fused_adam_plain(ref[0][lv], ref[1][lv], ref[2][lv], rows_l[lv], g_l[lv], lr, bc1,
-                            bc2, n_used[lv])
+    ak.fused_adam_levels(*kern, rows_l, g_l, lr, bc1, bc2, scales, n_used)
+
+    def plain():
+        for lv in range(L):
+            ak.fused_adam_plain(ref[0][lv], ref[1][lv], ref[2][lv], rows_l[lv], g_l[lv],
+                                lrs[lv], bc1, bc2, n_used[lv])
+
+    plain()
     torch.cuda.synchronize()
-    spreads = [_sum_order_spread([t[lv] for t in tabs0], rows_l[lv], g_l[lv], lr, bc1, bc2,
+    spreads = [_sum_order_spread([t[lv] for t in tabs0], rows_l[lv], g_l[lv], lrs[lv], bc1, bc2,
                                  n_used[lv]) for lv in range(L)]
     spread = [[sp[t][0] for sp in spreads] for t in range(3)]
     err = _check_f32(kern, ref, tabs0, n_used, single=single, spread=spread)
@@ -4287,40 +4561,56 @@ def phase_surface_kernel(run, sizes, n_used, M):
                             1e-5 * ref[t][lv].abs() + spread[t][lv] + min(
                                 1e-6, 1e-5 * float(tabs0[t][lv][:n_used[lv]].abs().max())))
                 for t in range(3) for lv in range(L))
-    pres = [ak.entry_prep([rows_l[lv]], [sizes[lv]], [n_used[lv]], D) for lv in range(L)]
+    pre = ak.entry_prep(rows_l, sizes, n_used, D)
+    n_split = int(pre.n_split)
+    assert one_row is None or n_split > 0, f"{where}: no tile was split"
 
-    def wrapper(pre=False):
-        for lv in range(L):
-            ak.fused_adam(kern[0][lv], kern[1][lv], kern[2][lv], rows_l[lv], g_l[lv], lr, bc1,
-                          bc2, n_used[lv], pre=pres[lv] if pre else None)
+    def call(given=None):
+        ak.fused_adam_levels(*kern, rows_l, g_l, lr, bc1, bc2, scales, n_used, pre=given)
+
+    ent_off = [lv * M for lv in range(L)]
+    offs = [sum(sizes[:lv]) for lv in range(L)]
 
     def alone():
-        for lv in range(L):
-            ak._launch("f32", [kern[0][lv]], [kern[1][lv]], [kern[2][lv]], [g_l[lv]], [0],
-                       pres[lv], [n_used[lv]], [0], [lr], 0.9, 0.99, bc1, bc2, 1e-15, False, 0)
+        ak._launch("f32", *kern, g_l, ent_off, pre, n_used, offs, lrs, 0.9, 0.99, bc1, bc2,
+                   1e-15)
 
-    def plain():
-        for lv in range(L):
-            ak.fused_adam_plain(ref[0][lv], ref[1][lv], ref[2][lv], rows_l[lv], g_l[lv], lr,
-                                bc1, bc2, n_used[lv])
+    t_call, t_pre = cuda_ms(call), cuda_ms(lambda: call(pre))
+    parent, t_parent = _parent_lib(), None
+    if parent is not None:
+        pres = [ak.window_prep(ak._prep_launch([r.reshape(1, -1)], [C], [nu], pre.tb, chunk=0),
+                               0) for r, C, nu in zip(rows_l, sizes, n_used)]
 
-    t_wrap, t_pre = cuda_ms(wrapper), cuda_ms(lambda: wrapper(True))
-    t_alone, t_plain = cuda_ms(alone), cuda_ms(plain, iters=5)
-    t_lib = _library_ms(tabs0[0], rows_l, g_l, n_used, [lr] * L)
+        def old():
+            for lv in range(L):
+                _launch_parent(parent, "f32", [kern[0][lv]], [kern[1][lv]], [kern[2][lv]],
+                               [g_l[lv]], [0], pres[lv], [n_used[lv]], [0], [lrs[lv]], 0.9,
+                               0.99, bc1, bc2, 1e-15)
+
+        t_parent, t_alone = _in_turns(old, alone, graph_ms)
+        del pres
+    else:
+        t_alone = graph_ms(alone)
+    t_plain = cuda_ms(plain, iters=5)
+    t_lib = _library_ms(tabs0[0], rows_l, g_l, n_used, lrs)
     bound, by = _bound_ms(n_used, L * M, D)
-    print(f"[kernels] K1 fused_adam at {L} levels (run {run}'s tables {list(sizes)} rows, used "
-          f"{list(n_used)}, M {M} a level): max_abs_err {err:.3e} (phase 2's tolerance plus "
-          f"the sum-order spread, at most {share:.2f} of it used), bit-equal on single-entry "
-          f"rows; a step's {L} launches: wrapper {t_wrap:.4f} ms, with pre {t_pre:.4f} ms, "
-          f"kernel alone {t_alone:.4f} ms, plain {t_plain:.4f} ms, library {t_lib:.4f} ms "
-          f"(index_add_ + fused torch.optim.Adam), bound {bound:.4f} ms ({by}), "
-          f"{bound / t_alone:.0%} of bound")
+    par = ("" if t_parent is None else
+           f"the parent's {L} per-level launches alone {t_parent:.4f} ms (in turns, "
+           f"{t_parent / t_alone:.2f}x), ")
+    hot = "" if one_row is None else f", level {one_row}'s entries on one row"
+    print(f"[kernels] K1 fused_adam_levels at {L} levels ({where}: {list(sizes)} rows, used "
+          f"{list(n_used)}, M {M} a level{hot}; work list {n_split} extra items of "
+          f"{pre.chunk} entries): max_abs_err {err:.3e} (phase 2's tolerance plus the sum-order "
+          f"spread, at most {share:.2f} of it used), bit-equal on single-entry rows; the step's "
+          f"call (one prep + one launch) {t_call:.4f} ms, with pre {t_pre:.4f} ms, kernel "
+          f"alone {t_alone:.4f} ms, {par}plain {t_plain:.4f} ms, library {t_lib:.4f} ms "
+          f"(index_add_ + fused torch.optim.Adam; the call {t_lib / t_call:.2f}x faster), bound "
+          f"{bound:.4f} ms ({by}), {bound / t_alone:.0%} of bound")
     row = dict(name="fused_adam", route="cuda", source=SOURCE, replaces=K1_TPU,
-               variant=f"f32, {L} levels, run {run}'s tables", max_abs_err=err, ms=t_wrap,
-               ms_with_pre=t_pre,
-               kernel_only_ms=t_alone, plain_ms=t_plain, bound_ms=bound, bound_by=by,
-               library_ms=t_lib)
-    del tabs0, kern, ref, pres
+               variant=f"f32, {L} levels in one launch, {where}", max_abs_err=err,
+               ms=t_call, ms_with_pre=t_pre, kernel_only_ms=t_alone, parent_kernel_ms=t_parent,
+               plain_ms=t_plain, bound_ms=bound, bound_by=by, library_ms=t_lib)
+    del tabs0, kern, ref, pre
     torch.cuda.empty_cache()
     return row
 
@@ -4358,7 +4648,7 @@ def phase_surface():
             del grid
     rows = []
     for run, (sizes, n_used, M, launches) in shapes.items():
-        rows.append(phase_surface_kernel(run, sizes, n_used, M))
+        rows.append(phase_surface_kernel(f"run {run}'s tables", sizes, n_used, M))
         rows[-1]["launches"] = launches
     print(f"[surface] phase 11 took {time.perf_counter() - t0:.1f} s ((j) {t_j:.1f} s)")
     return rows, multihost
@@ -4369,7 +4659,8 @@ def phase_surface():
 
 # phases that run alone with ``--only`` (a check while developing; the
 # smoke itself is the run with no arguments)
-ALONE = {"agreement": lambda: (phase_agreement(), phase_agreement_options()),
+ALONE = {"kernels": lambda: phase_kernels(),
+         "agreement": lambda: (phase_agreement(), phase_agreement_options()),
          "map": lambda: phase_map(), "incre": lambda: phase_incre(),
          "city": lambda: phase_city(), "multi": lambda: phase_multi(),
          "incre-multi": lambda: phase_incre_multi(), "surface": lambda: phase_surface(),

@@ -27,19 +27,30 @@
 // which the atomics landed (the update sums a tile's entries with atomics,
 // so it does not depend on it).
 //
+// The update's work list (chunk > 0).  A tile of n > chunk entries is
+// summed by k = ceil(n / chunk) CTAs of the update kernel, one a chunk of
+// its entries: the first is the tile's own CTA (grid index t), the k - 1
+// others are "extra" work items.  split_off (T) -- tile t's first extra
+// item (the exclusive scan of k - 1 over the tiles; it also keys the
+// tile's accumulator slot in the update); split_items (E_max, 2) -- each
+// extra item's (tile, chunk j >= 1); n_split (one int32) -- the number of
+// extra items, at most M / chunk.  The same scan as tile_off: each tile's
+// count and its k - 1 ride one 64-bit value.
+//
 //   prep_bin_kernel      one thread per entry: its bin and its rank in the bin
 //                        (warp-aggregated atomics on the bin counts, the
 //                        excluded bin aggregated per block, which most of a
 //                        batch's misses share); dropped entries counted per
 //                        block
 //   prep_scan_kernel     one 1024-thread CTA per batch: exclusive scan of the
-//                        bin counts -> tile_off; dropped -> int64
+//                        bin counts -> tile_off (and the work list);
+//                        dropped -> int64
 //   prep_scatter_kernel  one thread per entry: position tile_off[bin] + rank
-// with one memset of the counts before them (the wrapper's torch.zeros):
-// four device ops where the torch chain ran ~50.
+// with one memset of the counts before them: four device ops where the
+// torch chain ran ~50.
 //
 // Bound: bytes.  Each entry's row is read twice and its rank written and
-// read once, 8 B written per entry, 4 B per tile and the counts: ~30 B per
+// read once, 8 B written per entry, 8 B per tile and the counts: ~30 B per
 // entry.  At the main path's 196,608 entries and 35,860 tiles about 6 MB,
 // ~2 us at 3.35 TB/s; the three launches' latency (~3 x 3 us) is the cost.
 
@@ -119,42 +130,59 @@ __global__ void __launch_bounds__(THREADS)
   if (i < M) rank[(long long)w * M + i] = base + below;
 }
 
-// tile_off[w] = exclusive scan of counts[w][0, T + 1); dropped[w] = counts[w][T + 1]
+// tile_off[w] = exclusive scan of counts[w][0, T + 1); dropped[w] =
+// counts[w][T + 1]; with chunk > 0 also the work list (split_off, items,
+// n_split): each tile's count n (low word) and its extra items k - 1 (high
+// word) are scanned as one 64-bit value (sum of n <= M < 2^31, no carry)
 __global__ void __launch_bounds__(SCAN_THREADS)
     prep_scan_kernel(const int* __restrict__ counts, int T, int* __restrict__ tile_off,
-                long long* __restrict__ dropped) {
-  __shared__ int s_warp[SCAN_THREADS / 32];
+                     long long* __restrict__ dropped, int chunk, int E_max,
+                     int* __restrict__ split_off, int2* __restrict__ split_items,
+                     int* __restrict__ n_split) {
+  __shared__ unsigned long long s_warp[SCAN_THREADS / 32];
   const int w = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* c = counts + (long long)w * (T + 2);
   int* o = tile_off + (long long)w * (T + 1);
-  int carry = 0;
+  unsigned long long carry = 0;
   for (int start = 0; start < T + 1; start += SCAN_THREADS) {
     const int i = start + threadIdx.x;
-    const int x = i < T + 1 ? c[i] : 0;
-    int s = x;  // inclusive scan in the warp
+    const int n = i < T + 1 ? c[i] : 0;
+    const int ex = chunk > 0 && i < T && n > chunk ? (n - 1) / chunk : 0;  // k - 1
+    const unsigned long long x = ((unsigned long long)ex << 32) | (unsigned)n;
+    unsigned long long s = x;  // inclusive scan in the warp
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, d);
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, s, d);
       if (lane >= d) s += y;
     }
     if (lane == 31) s_warp[warp] = s;
     __syncthreads();
     if (warp == 0) {
-      int ws = s_warp[lane];
+      unsigned long long ws = s_warp[lane];
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, ws, d);
+        const unsigned long long y = __shfl_up_sync(0xffffffffu, ws, d);
         if (lane >= d) ws += y;
       }
       s_warp[lane] = ws;
     }
     __syncthreads();
-    if (i < T + 1) o[i] = carry + (warp ? s_warp[warp - 1] : 0) + s - x;
+    const unsigned long long e = carry + (warp ? s_warp[warp - 1] : 0ull) + s - x;
+    if (i < T + 1) o[i] = (int)(unsigned)e;
+    if (chunk > 0 && i < T) {
+      const int first = (int)(e >> 32);
+      split_off[(long long)w * T + i] = first;
+      for (int j = 1; j <= ex && first + j - 1 < E_max; ++j)
+        split_items[(long long)w * E_max + first + j - 1] = make_int2(i, j);
+    }
     carry += s_warp[SCAN_THREADS / 32 - 1];
     __syncthreads();
   }
-  if (threadIdx.x == 0) dropped[w] = c[T + 1];
+  if (threadIdx.x == 0) {
+    dropped[w] = c[T + 1];
+    if (chunk > 0) n_split[w] = (int)(carry >> 32);
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -178,15 +206,19 @@ extern "C" {
 // Launches bin, scan and scatter on `stream`; returns cudaGetLastError()
 // (0 = launched).  rows: HOST array of n_levels device pointers;
 // ent_off (n_levels + 1), size, n_used, row_off, tile_lo (n_levels): HOST
-// arrays.  counts: device (W, T + 2) int32, zeroed by the caller; rank:
+// arrays.  counts: device (W, T + 2) int32 scratch (zeroed here); rank:
 // device (W, M) int32 scratch; tile_off (W, T + 1), rows_out and order_out
-// (W, M) int32, dropped (W) int64: device outputs.
+// (W, M) int32, dropped (W) int64: device outputs.  chunk > 0: also the
+// work list, split_off (W, T), split_items (W, E_max, 2) and n_split (W)
+// int32 (device outputs; E_max >= M / chunk); chunk 0 writes none of them.
 int entry_prep(const void* const* rows, int rows64, const long long* ent_off, int n_levels,
                const long long* size, const long long* n_used, const long long* row_off,
                const int* tile_lo, int tb, int T, int W, void* counts, void* rank,
-               void* tile_off, void* rows_out, void* order_out, void* dropped, void* stream) {
+               void* tile_off, void* rows_out, void* order_out, void* dropped, void* stream,
+               int chunk, int E_max, void* split_off, void* split_items, void* n_split) {
   if (n_levels < 1 || n_levels > MAX_LEVELS || tb < 1 || T < 0 || W < 0 ||
-      ent_off[n_levels] > 0x7fffffffLL || W > 65535)
+      ent_off[n_levels] > 0x7fffffffLL || W > 65535 || chunk < 0 ||
+      (chunk > 0 && (long long)E_max * chunk < ent_off[n_levels]))
     return (int)cudaErrorInvalidValue;
   PrepLevels a;
   for (int l = 0; l < n_levels; ++l) {
@@ -207,11 +239,15 @@ int entry_prep(const void* const* rows, int rows64, const long long* ent_off, in
   int* cnt = static_cast<int*>(counts);
   int* rk = static_cast<int*>(rank);
   int* to = static_cast<int*>(tile_off);
+  const cudaError_t e = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)W * (T + 2), s);
+  if (e != cudaSuccess) return (int)e;
   if (M > 0) {
     const dim3 grid((unsigned)((M + THREADS - 1) / THREADS), (unsigned)W);
     prep_bin_kernel<<<grid, THREADS, 0, s>>>(a, M, T, cnt, rk);
   }
-  prep_scan_kernel<<<(unsigned)W, SCAN_THREADS, 0, s>>>(cnt, T, to, static_cast<long long*>(dropped));
+  prep_scan_kernel<<<(unsigned)W, SCAN_THREADS, 0, s>>>(
+      cnt, T, to, static_cast<long long*>(dropped), chunk, E_max, static_cast<int*>(split_off),
+      static_cast<int2*>(split_items), static_cast<int*>(n_split));
   if (M > 0) {
     const dim3 grid((unsigned)((M + THREADS - 1) / THREADS), (unsigned)W);
     prep_scatter_kernel<<<grid, THREADS, 0, s>>>(a, M, T, to, rk, static_cast<int*>(rows_out),

@@ -9,8 +9,11 @@
 //                       fused_adam_packed_multi_pre)
 // Both compute the same step, so this file holds ONE kernel template; the
 // wrapper (shine_mapping_tpu_torch/ops/adam_kernel.py) calls it with L = 1
-// for K1 and with all L levels' tables for K2.  Three entry points, one per
-// table dtype combination the TPU kernels take:
+// for K1's one-level step, with all L levels' tables and each level's lr
+// for K1's per-level step (fused_adam_levels: every row's result depends on
+// its own level's entries and lr alone, so one launch gives the L per-level
+// launches' step) and for K2.  Three entry points, one per table dtype
+// combination the TPU kernels take:
 //   fused_adam_f32          p, m, v float32
 //   fused_adam_f32p_bf16m   p float32, m and v bfloat16  (tpu.moments_bf16;
 //                           K1 adam_kernel.py:85-96, K2 :178-185, :201-202)
@@ -110,6 +113,28 @@
 //   call per group, ten rounds of 32-bit multiplies, besides the correctly
 //   rounded quotients and root of every variant): the likely reason it
 //   stays furthest from its bytes bound (not yet measured).
+// - Entry-balanced grid (small, hot tables).  Where a level's used head is
+//   a few tiles and each takes thousands of entries (4 levels of 1,024 -
+//   286,720 used rows, 32,768 entries each: the RGB-D configs), one CTA a
+//   tile leaves most SMs idle while a handful of CTAs serialise on their
+//   shared-memory atomics.  The prep's work list (csrc/entry_prep.cu, its
+//   chunk) splits a tile of n > chunk entries into k = ceil(n / chunk)
+//   work items: the tile's own CTA sums the first chunk, k - 1 extra CTAs
+//   (grid indices past the tiles, launched up to the host-known bound T +
+//   M / chunk; those past the list's count exit) one chunk each.  Each
+//   adds its shared-memory partial into the tile's f32 slot in global
+//   memory (red.add, zeros skipped, so a hot row costs D atomics a CTA),
+//   fences, and counts itself in; the last to arrive reads the slot, leaves
+//   it and its counter at zero for the next launch, and runs the tile's
+//   Adam sweep, loading the tables itself (so no host read and no second
+//   launch; the groups every CTA prefetched are dead on this path, which
+//   keeps the registers of the common path at their level before the work
+//   list).  Tiles of at most chunk entries keep the path above.  chunk 0
+//   (no work list, or det) is the one-CTA-a-tile grid: the deterministic
+//   sum never splits a tile.
+// - The split tiles' scratch (slots and counters) lives with the wrapper,
+//   one buffer a device, zero between launches; launches on one stream
+//   take turns on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,6 +163,17 @@ struct Levels {
 
 struct Hyper {
   float b1, b2, omb1, omb2, bc1, bc2, eps;
+};
+
+// The entry-balanced grid's work list and scratch (chunk 0: none)
+struct Split {
+  const int* off;     // (T) each tile's first extra item; keys its slot
+  const int2* items;  // (E_max) each extra item's (tile, chunk j >= 1)
+  const int* count;   // (1) the number of extra items
+  float* acc;         // (E_max, tb * D) f32 slots, zero between launches
+  int* arrive;        // (E_max) arrival counters, zero between launches
+  int chunk;          // entries a work item sums; 0 = one CTA a tile
+  int T;              // tiles: grid indices >= T are extra items
 };
 
 // 8 consecutive float32, 16-byte aligned (the gradient tile in shared memory)
@@ -302,17 +338,59 @@ __device__ __forceinline__ void finish_group(const Group<P, Mt>& r, P* p, Mt* m,
   }
 }
 
+// the tile's atomics sum of entries [lo, hi) into the zeroed (tb, D) tile;
+// eo (the level's first entry) and row0 (the tile's first global row) are
+// below 2^31 (the wrapper refuses more entries or rows)
+template <bool GRADS_BF16>
+__device__ __forceinline__ void sum_atomic(float* gtile, const int* __restrict__ rows,
+                                           const int* __restrict__ order,
+                                           const float* __restrict__ g, int eo, int row0,
+                                           int lo, int hi, int D) {
+  const int n = (hi - lo) * D;
+  for (int e = threadIdx.x; e < n; e += THREADS) {
+    const int j = lo + e / D;
+    const int d = e - (e / D) * D;
+    float gv = g[(long long)(order[j] - eo) * D + d];
+    if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
+    atomicAdd(&gtile[(rows[j] - row0) * D + d], gv);
+  }
+}
+
+// CTAs an SM must hold at once (the registers a thread may take follow):
+// each variant keeps the occupancy of the kernel before the work list
+// (bf16 p 8 CTAs, 60 registers; bf16 moments 7, 69; f32 6, 77).  Measured
+// on the card: a first form of the work list's path took the bf16 variants
+// to 74 registers and 6 CTAs, 10-14 % slower, and f32 to 93 and 5 CTAs,
+// 5-8 % slower on row shards (whose untouched tiles only stream); with the
+// split path's own sweep (below) and these bounds each variant is within
+// 1.5 % of the kernel before it (a bound of 1 let f32 take 135, 30 %
+// slower).
+template <typename P, typename Mt>
+struct MinCtas {
+  static constexpr int value = std::is_same<P, __nv_bfloat16>::value ? 8
+                               : std::is_same<Mt, __nv_bfloat16>::value ? 7 : 6;
+};
+
 // THREADS threads a CTA; each prefetches GPT groups of its tile (the whole
-// of a 2,048-element tile) before the entries are summed
+// of a 2,048-element tile) before the entries are summed.  Grid: one CTA a
+// tile, then (sp.chunk > 0) the work list's extra items
 template <typename P, typename Mt, bool GRADS_BF16>
-__global__ void __launch_bounds__(THREADS) fused_adam_kernel(
+__global__ void __launch_bounds__(THREADS, MinCtas<P, Mt>::value) fused_adam_kernel(
     const int* __restrict__ rows, const int* __restrict__ order,
     const int* __restrict__ tile_off, int D, int tb, Levels lv, Hyper h, unsigned seed,
-    int det) {
+    int det, Split sp) {
   extern __shared__ float4 smem4[];
   float* gtile = reinterpret_cast<float*>(smem4);
+  __shared__ int s_last;
 
-  const int t = blockIdx.x;
+  int t = blockIdx.x, j = 0;
+  if (t >= sp.T) {  // an extra work item
+    const int e = t - sp.T;
+    if (e >= *sp.count) return;  // past the list: the grid is its upper bound
+    const int2 w = sp.items[e];
+    t = w.x;
+    j = w.y;
+  }
   int l = 0;
   while (l + 1 < lv.n_levels && t >= lv.tile_lo[l + 1]) ++l;
   const long long k = t - lv.tile_lo[l];
@@ -334,39 +412,72 @@ __global__ void __launch_bounds__(THREADS) fused_adam_kernel(
 
   const int lo = tile_off[t], hi = tile_off[t + 1];
   const bool touched = hi > lo;  // the same for the whole CTA
-  if (touched) {
-    const int n4 = (tb * D) >> 2;  // tb * D is a multiple of 8
+  const int row0 = (int)(lv.row_off[l] + k * tb);  // global, as the entries
+  const float* __restrict__ g = lv.g[l];
+  const int eo = (int)lv.ent_off[l];
+  const int n4 = (tb * D) >> 2;  // tb * D is a multiple of 8
+  if (sp.chunk > 0 && hi - lo > sp.chunk) {
+    // a split tile: this item sums its chunk, the partial goes to the
+    // tile's slot, and the last item to arrive sweeps the tile with groups
+    // of its own (the prefetched ones are dead here, which keeps the
+    // registers of the path below those it had before the work list)
     for (int e = threadIdx.x; e < n4; e += THREADS) smem4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
-    const long long row0 = lv.row_off[l] + k * tb;  // global, as the entries
-    const float* __restrict__ g = lv.g[l];
-    const long long eo = lv.ent_off[l];
-    const int n = (hi - lo) * D;
+    const int klo = lo + j * sp.chunk;
+    sum_atomic<GRADS_BF16>(gtile, rows, order, g, eo, row0, klo, min(hi, klo + sp.chunk), D);
+    __syncthreads();
+    const int slot = sp.off[t];
+    float* acc = sp.acc + (long long)slot * tb * D;
+    for (int e = threadIdx.x; e < tb * D; e += THREADS) {
+      const float x = gtile[e];
+      if (x != 0.f) atomicAdd(acc + e, x);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(sp.arrive + slot, 1) == (hi - lo - 1) / sp.chunk;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();  // the other items' adds, before the slot is read
+    float4* acc4 = reinterpret_cast<float4*>(acc);
+    for (int e = threadIdx.x; e < n4; e += THREADS) {
+      smem4[e] = __ldcg(acc4 + e);
+      __stcg(acc4 + e, make_float4(0.f, 0.f, 0.f, 0.f));  // zero for the next launch
+    }
+    if (threadIdx.x == 0) sp.arrive[slot] = 0;
+    __syncthreads();
+    const float lr = lv.lr[l];
+    const long long grp0 = lv.grp_base[l] + (base >> 3);
+    for (int q = threadIdx.x; q < n_groups; q += THREADS) {
+      Group<P, Mt> x;
+      load_group(x, p, m, v, q << 3, min(8, nel - (q << 3)));
+      finish_group(x, p, m, v, q << 3, min(8, nel - (q << 3)), gtile, lr, h, grp0 + q, l,
+                   seed);
+    }
+    return;
+  }
+  if (touched) {
+    for (int e = threadIdx.x; e < n4; e += THREADS) smem4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
     if (det) {
       // entries sorted by row inside the tile (the plain prep's stable
       // sort): the thread at a run's head sums the run in entry order, so
       // every launch on the same entries gives the same bits
+      const int n = (hi - lo) * D;
       for (int e = threadIdx.x; e < n; e += THREADS) {
-        const int j = lo + e / D;
+        const int jj = lo + e / D;
         const int d = e - (e / D) * D;
-        const int r = rows[j];
-        if (j > lo && rows[j - 1] == r) continue;
-        float acc = 0.f;
-        for (int i = j; i < hi && rows[i] == r; ++i) {
-          float gv = g[((long long)order[i] - eo) * D + d];
+        const int rr = rows[jj];
+        if (jj > lo && rows[jj - 1] == rr) continue;
+        float a = 0.f;
+        for (int i = jj; i < hi && rows[i] == rr; ++i) {
+          float gv = g[(long long)(order[i] - eo) * D + d];
           if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
-          acc = __fadd_rn(acc, gv);
+          a = __fadd_rn(a, gv);
         }
-        gtile[(int)(r - row0) * D + d] = acc;
+        gtile[(rr - row0) * D + d] = a;
       }
     } else {
-      for (int e = threadIdx.x; e < n; e += THREADS) {
-        const int j = lo + e / D;
-        const int d = e - (e / D) * D;
-        float gv = g[((long long)order[j] - eo) * D + d];
-        if (GRADS_BF16) gv = __bfloat162float(__float2bfloat16_rn(gv));
-        atomicAdd(&gtile[(int)(rows[j] - row0) * D + d], gv);
-      }
+      sum_atomic<GRADS_BF16>(gtile, rows, order, g, eo, row0, lo, hi, D);
     }
     __syncthreads();
   }
@@ -389,39 +500,50 @@ __global__ void __launch_bounds__(THREADS) fused_adam_kernel(
 }
 
 template <typename P, typename Mt, bool GB>
-static int launch_t(unsigned tiles, size_t smem, cudaStream_t s, const int* rows,
+static int launch_t(unsigned grid, size_t smem, cudaStream_t s, const int* rows,
                     const int* order, const int* tile_off, int D, int tb, const Levels& lv,
-                    const Hyper& h, unsigned seed, int det) {
+                    const Hyper& h, unsigned seed, int det, const Split& sp) {
   if (smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(fused_adam_kernel<P, Mt, GB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_adam_kernel<P, Mt, GB><<<tiles, THREADS, smem, s>>>(rows, order, tile_off, D, tb, lv,
-                                                             h, seed, det);
+  fused_adam_kernel<P, Mt, GB><<<grid, THREADS, smem, s>>>(rows, order, tile_off, D, tb, lv,
+                                                            h, seed, det, sp);
   return 0;
 }
 
 // Launches the step on `stream`; returns cudaGetLastError() (0 = launched).
 // p, m, v, g (device pointers, one per level), ent_off, row_off, n_used and
 // lr are HOST arrays of n_levels entries; rows, order (M) and tile_off
-// (tiles + 1) device arrays from the entry prep with the same tb.
+// (tiles + 1) device arrays from the entry prep with the same tb.  chunk >
+// 0 (not with det): the prep's work list split_off (tiles), split_items
+// (E_max, 2), n_split (1) and, for E_max slots, acc (E_max * tb * D f32)
+// and arrive (E_max int32), device scratch that is zero before the launch
+// and that the launch leaves zero.
 template <typename P, typename Mt>
 static int launch(void* const* p, void* const* m, void* const* v, const void* const* g,
                   const long long* ent_off, const int* rows, const int* order,
                   const int* tile_off, int D, int tb, int n_levels, const long long* row_off,
                   const long long* n_used, const float* lr, float b1, float b2, float omb1,
                   float omb2, float bc1, float bc2, float eps, int grads_bf16, unsigned seed,
-                  void* stream, const long long* row_base, int det) {
-  if (n_levels < 1 || n_levels > MAX_LEVELS || D < 1 || tb < 8 || tb % 8 != 0)
+                  void* stream, const long long* row_base, int det, int chunk, int E_max,
+                  const void* split_off, const void* split_items, const void* n_split,
+                  void* acc, void* arrive) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS || D < 1 || tb < 8 || tb % 8 != 0 || chunk < 0 ||
+      (chunk > 0 && (det || E_max < 1 || split_off == nullptr || split_items == nullptr ||
+                     n_split == nullptr || acc == nullptr || arrive == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)tb * D * sizeof(float);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   Levels lv;
   long long tiles = 0;
   for (int l = 0; l < n_levels; ++l) {
-    if (n_used[l] < 0) return (int)cudaErrorInvalidValue;
+    // the kernel keeps entries and global rows in 32 bits
+    if (n_used[l] < 0 || ent_off[l] < 0 || ent_off[l] > 0x7fffffffLL || row_off[l] < 0 ||
+        row_off[l] + n_used[l] > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
     // a shard's elements keep the noise of their place in the whole table,
     // which needs its first element on a group of 8
     const long long e0 = row_base == nullptr ? 0 : row_base[l] * D;
@@ -438,17 +560,21 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
     lv.lr[l] = lr[l];
     tiles += (n_used[l] + tb - 1) / tb;
   }
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long grid = tiles + (chunk > 0 ? E_max : 0);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   lv.tile_lo[n_levels] = (int)tiles;
   lv.n_levels = n_levels;
   const Hyper h{b1, b2, omb1, omb2, bc1, bc2, eps};
+  const Split sp{static_cast<const int*>(split_off), static_cast<const int2*>(split_items),
+                 static_cast<const int*>(n_split), static_cast<float*>(acc),
+                 static_cast<int*>(arrive), chunk, (int)tiles};
   if (tiles > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     const int err = grads_bf16
-        ? launch_t<P, Mt, true>((unsigned)tiles, smem, s, rows, order, tile_off, D, tb, lv, h,
-                                seed, det)
-        : launch_t<P, Mt, false>((unsigned)tiles, smem, s, rows, order, tile_off, D, tb, lv, h,
-                                 seed, det);
+        ? launch_t<P, Mt, true>((unsigned)grid, smem, s, rows, order, tile_off, D, tb, lv, h,
+                                seed, det, sp)
+        : launch_t<P, Mt, false>((unsigned)grid, smem, s, rows, order, tile_off, D, tb, lv, h,
+                                 seed, det, sp);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
@@ -463,36 +589,42 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
 #define FUSED_ADAM_PASS                                                                \
   p, m, v, g, ent_off, rows, order, tile_off, D, tb, n_levels, row_off, n_used, lr, b1, \
       b2, omb1, omb2, bc1, bc2, eps, grads_bf16, seed, stream
+// the work list (chunk 0: none), last in every entry point
+#define SPLIT_ARGS                                                                     \
+  int chunk, int E_max, const void *split_off, const void *split_items, const void *n_split, \
+      void *acc, void *arrive
+#define SPLIT_PASS chunk, E_max, split_off, split_items, n_split, acc, arrive
 
 extern "C" {
 
-int fused_adam_f32(FUSED_ADAM_ARGS) {
-  return launch<float, float>(FUSED_ADAM_PASS, nullptr, 0);
+int fused_adam_f32(FUSED_ADAM_ARGS, SPLIT_ARGS) {
+  return launch<float, float>(FUSED_ADAM_PASS, nullptr, 0, SPLIT_PASS);
 }
 
-int fused_adam_f32p_bf16m(FUSED_ADAM_ARGS) {
-  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS, nullptr, 0);
+int fused_adam_f32p_bf16m(FUSED_ADAM_ARGS, SPLIT_ARGS) {
+  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS, nullptr, 0, SPLIT_PASS);
 }
 
-int fused_adam_bf16p_bf16m(FUSED_ADAM_ARGS) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS, nullptr, 0);
+int fused_adam_bf16p_bf16m(FUSED_ADAM_ARGS, SPLIT_ARGS) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS, nullptr, 0, SPLIT_PASS);
 }
 
 // The same three with a row shard's place in the whole tables and the
 // deterministic sum: row_base (HOST, n_levels entries) is the first row of
 // each level's block in its whole table (its Philox groups are those of the
 // whole table; nullptr = 0), det sums each row's entries in the prep's
-// order instead of with atomics.
-int fused_adam_ex_f32(FUSED_ADAM_ARGS, const long long *row_base, int det) {
-  return launch<float, float>(FUSED_ADAM_PASS, row_base, det);
+// order instead of with atomics (and takes chunk 0).
+int fused_adam_ex_f32(FUSED_ADAM_ARGS, const long long *row_base, int det, SPLIT_ARGS) {
+  return launch<float, float>(FUSED_ADAM_PASS, row_base, det, SPLIT_PASS);
 }
 
-int fused_adam_ex_f32p_bf16m(FUSED_ADAM_ARGS, const long long *row_base, int det) {
-  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS, row_base, det);
+int fused_adam_ex_f32p_bf16m(FUSED_ADAM_ARGS, const long long *row_base, int det, SPLIT_ARGS) {
+  return launch<float, __nv_bfloat16>(FUSED_ADAM_PASS, row_base, det, SPLIT_PASS);
 }
 
-int fused_adam_ex_bf16p_bf16m(FUSED_ADAM_ARGS, const long long *row_base, int det) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS, row_base, det);
+int fused_adam_ex_bf16p_bf16m(FUSED_ADAM_ARGS, const long long *row_base, int det,
+                              SPLIT_ARGS) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(FUSED_ADAM_PASS, row_base, det, SPLIT_PASS);
 }
 
 }  // extern "C"

@@ -9,6 +9,9 @@ Port of the TPU kernels of ``shine_mapping_tpu/ops/adam_kernel.py``:
   ``fused_adam_packed_multi`` and ``fused_adam_packed_multi_pre``, which run
   on the levels' tables concatenated; here the kernel takes one base pointer
   per level, so the tables stay where they are).
+* :func:`fused_adam_levels` — K1's per-level step over L levels in ONE
+  launch: each level its own table and lr, as L :func:`fused_adam` calls
+  (the trainer's per-level branch; one prep and one launch a step).
 * :func:`fused_adam_shard` — K2 over one row shard: each level's contiguous
   block of rows, every row swept, entries routed to it (K2's row-sharded
   caller ``fused_adam_packed_shard``, adam_kernel.py:528).
@@ -76,7 +79,7 @@ _SUFFIX = {"f32": "", "bf16m": "_bf16m", "bf16p": "_bf16p"}
 # zeroes and reads them around the main path to show that it ran through
 # the kernel
 LAUNCHES: Dict[str, int] = {
-    "fused_adam": 0, "fused_adam_bf16m": 0,
+    "fused_adam": 0, "fused_adam_bf16m": 0,  # K1: one level, or L by fused_adam_levels
     "fused_adam_multi": 0, "fused_adam_multi_bf16m": 0, "fused_adam_multi_bf16p": 0,
     "entry_prep": 0,  # csrc/entry_prep.cu, one per prep (its three kernels)
     # K2 over one row shard (fused_adam_shard)
@@ -84,13 +87,22 @@ LAUNCHES: Dict[str, int] = {
     "fused_adam_multi_shard_bf16p": 0,
 }
 
+# the levels those launches stepped, by the same keys: K1's per-level step
+# counts one launch and L levels a step
+LEVEL_STEPS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
 MAX_LEVELS = 16  # csrc/fused_adam.cu MAX_LEVELS
 _SENTINEL = 2 ** 31 - 1  # sorts past every row; no tile covers it
+# entries one work item of the update kernel sums: a tile with more is
+# split over ceil(n / ENTRY_CHUNK) CTAs (csrc/fused_adam.cu, the prep's
+# work list)
+ENTRY_CHUNK = 512
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LEVEL_STEPS[k] = 0
 
 
 def used_rows_hint(n_corners, sizes, granularity: int = 16) -> Tuple[int, ...]:
@@ -121,6 +133,7 @@ def _check_tables(ps, ms, vs) -> str:
     if len(ms) != L or len(vs) != L:
         raise ValueError("one p, m and v table per level")
     variants = set()
+    dev, D = ps[0].device, ps[0].shape[-1]
     for p, m, v in zip(ps, ms, vs):
         key = (p.dtype, m.dtype)
         if m.dtype != v.dtype or key not in VARIANTS:
@@ -129,12 +142,13 @@ def _check_tables(ps, ms, vs) -> str:
                 f"float32/bfloat16/bfloat16 or bfloat16/bfloat16/bfloat16, got "
                 f"{p.dtype}/{m.dtype}/{v.dtype}")
         variants.add(VARIANTS[key])
-        for name, t in (("p", p), ("m", m), ("v", v)):
-            if t.dim() != 2 or not t.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous (rows, D) tensor")
-            if t.shape != p.shape or t.device != p.device:
-                raise ValueError("p, m and v must share shape and device")
-        if p.shape[1] != ps[0].shape[1] or p.device != ps[0].device:
+        shape = p.shape
+        if not (len(shape) == 2 and p.is_contiguous() and m.is_contiguous()
+                and v.is_contiguous() and m.shape == shape and v.shape == shape):
+            raise ValueError("p, m and v must be contiguous (rows, D) tensors of one shape")
+        if not (p.device == dev and m.device == dev and v.device == dev):
+            raise ValueError("p, m and v must share shape and device")
+        if shape[1] != D:
             raise ValueError("all levels must share D and device")
     if len(variants) != 1:
         raise TypeError(f"all levels must share the table dtypes, got {sorted(variants)}")
@@ -201,10 +215,20 @@ class EntryPrep(NamedTuple):
     sorted_by_row: the entries are sorted by (row, entry), so each row's
               entries lie next to each other (what the kernel's
               deterministic sum reads)
+    the update kernel's work list (``chunk`` 0 and None: every tile is one
+    work item, as for :func:`entry_prep_local`'s):
+    split_off:   (T,) int32 — each tile's first extra work item: a tile of
+              n > chunk entries is summed by k = ceil(n / chunk) CTAs, its
+              own and k - 1 extra ones
+    split_items: (E_max, 2) int32 — each extra item's (tile, chunk j >= 1);
+              E_max = M // chunk + 1 bounds their number
+    n_split:  () int32 — the number of extra items
+    chunk:    entries a work item sums
 
     The plain version (CPU tensors) sorts the entries by row, stably: one
     valid grouping, sorted.  The kernel's (CUDA tensors) leaves the order
-    inside a tile to its atomics: not sorted.
+    inside a tile to its atomics: not sorted.  Both write the same work list
+    (the first ``n_split`` items; the kernel leaves the rest unwritten).
     """
 
     rows: torch.Tensor
@@ -215,6 +239,10 @@ class EntryPrep(NamedTuple):
     n_used: Tuple[int, ...]
     tb: int
     sorted_by_row: bool = False
+    split_off: Optional[torch.Tensor] = None
+    split_items: Optional[torch.Tensor] = None
+    n_split: Optional[torch.Tensor] = None
+    chunk: int = 0
 
 
 def entry_prep(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
@@ -224,18 +252,20 @@ def entry_prep(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
     with used heads ``n_used`` (None = whole tables).  The port's
     counterpart of ``entry_prep_lanes`` / ``entry_prep_multi``
     (adam_kernel.py:940, :307)."""
-    return window_prep(entry_prep_stack([r.reshape(1, -1) for r in rows_list],
-                                        sizes, n_used, dim), 0)
+    return entry_prep_stack(rows_list, sizes, n_used, dim, stack=False)
 
 
 def entry_prep_stack(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
-                     n_used: Optional[Sequence[int]], dim: int) -> EntryPrep:
+                     n_used: Optional[Sequence[int]], dim: int,
+                     stack: bool = True) -> EntryPrep:
     """:func:`entry_prep` of W batches at once: ``rows_list[l]`` is level
     l's rows of every batch, ``(W, ...)``.  Returns an EntryPrep whose rows
     and order are ``(W, M)``, tile_off ``(W, T + 1)`` and dropped ``(W,)``;
     :func:`window_prep` takes batch w's.  On CUDA tensors one launch of
-    csrc/entry_prep.cu (three kernels) after one memset, for all W (the
-    trainer's epoch windows); on CPU tensors :func:`entry_prep_stack_plain`."""
+    csrc/entry_prep.cu (a memset and three kernels), for all W (the
+    trainer's epoch windows); on CPU tensors :func:`entry_prep_stack_plain`.
+    ``stack=False``: the rows are one batch of any shape and the prep is
+    that batch's (:func:`entry_prep`)."""
     sizes = tuple(int(c) for c in sizes)
     n_used = sizes if n_used is None else tuple(int(n) for n in n_used)
     if len(rows_list) != len(sizes) or len(n_used) != len(sizes):
@@ -247,24 +277,29 @@ def entry_prep_stack(rows_list: Sequence[torch.Tensor], sizes: Sequence[int],
     if sum(sizes) >= _SENTINEL:
         raise ValueError("tables of 2**31 - 1 rows or more in all are not supported")
     device = rows_list[0].device
-    W = rows_list[0].shape[0]
+    W = rows_list[0].shape[0] if stack else None
     for rows in rows_list:
         if rows.dtype not in (torch.int32, torch.int64):
             raise TypeError("rows must be int32/int64")
-        if rows.device != device or rows.shape[0] != W:
+        if rows.device != device or (stack and rows.shape[0] != W):
             raise ValueError("all levels' rows must lie on one device, W batches each")
     tb = tile_rows(dim)
+    if not stack and device.type == "cpu":
+        return window_prep(entry_prep_stack_plain([r.reshape(1, -1) for r in rows_list],
+                                                  sizes, n_used, tb), 0)
     if device.type == "cpu":
         return entry_prep_stack_plain(rows_list, sizes, n_used, tb)
     if device.type != "cuda":
         raise ValueError(f"entry_prep runs on cuda (or cpu), not {device}")
-    return _prep_launch(rows_list, sizes, n_used, tb)
+    return _prep_launch(rows_list, sizes, n_used, tb, stack=stack)
 
 
-def entry_prep_stack_plain(rows_list, sizes, n_used, tb: int) -> EntryPrep:
+def entry_prep_stack_plain(rows_list, sizes, n_used, tb: int,
+                           chunk: int = ENTRY_CHUNK) -> EntryPrep:
     """The plain torch version of :func:`entry_prep_stack` (any device): the
     rows globalised (sentinel for trashbin and out-of-head entries), a
-    stable sort, and each tile's first position by ``searchsorted``."""
+    stable sort, each tile's first position by ``searchsorted``, and the
+    work list (:func:`work_list_plain`; ``chunk`` 0: none)."""
     device = rows_list[0].device
     W = rows_list[0].shape[0]
     rows_g = []
@@ -283,72 +318,143 @@ def entry_prep_stack_plain(rows_list, sizes, n_used, tb: int) -> EntryPrep:
     bounds.append(torch.tensor([_SENTINEL], dtype=torch.int64, device=device))
     b = torch.cat(bounds).to(torch.int32).expand(W, -1).contiguous()
     tile_off = torch.searchsorted(rows_s, b).to(torch.int32)
+    split = work_list_plain(tile_off, rows_s.shape[1], chunk) if chunk else (None,) * 3
     return EntryPrep(rows_s.contiguous(), order.to(torch.int32), tile_off, dropped,
-                     tuple(int(c) for c in sizes), tuple(int(n) for n in n_used), tb, True)
+                     tuple(int(c) for c in sizes), tuple(int(n) for n in n_used), tb, True,
+                     *split, chunk)
 
 
-def _prep_launch(rows_list, sizes, n_used, tb, trash=None) -> EntryPrep:
-    """csrc/entry_prep.cu on CUDA rows (counted under ``entry_prep``).
-    ``trash``: per level the row count whose last row is the excluded
-    trashbin (default ``sizes``; 0 makes the pad row -1 the excluded one)."""
-    lib = cuda_build.load("entry_prep")
-    fn = lib.entry_prep
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
-                       + [ctypes.POINTER(ctypes.c_longlong)] * 3
-                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 7)
-        fn.restype = ctypes.c_int
+def work_list_plain(tile_off: torch.Tensor, M: int, chunk: int):
+    """The update kernel's work list from W batches' tile offsets ``(W, T
+    + 1)`` (M entries a batch): the plain version of what csrc/entry_prep.cu's
+    scan writes.  A tile of n > ``chunk`` entries takes k - 1 = (n - 1) //
+    chunk extra items.  Returns (split_off (W, T), split_items (W, E_max, 2)
+    with E_max = M // chunk + 1, zero past each batch's count, n_split (W,)),
+    all int32."""
+    W, T = tile_off.shape[0], tile_off.shape[1] - 1
+    dev = tile_off.device
+    n = (tile_off[:, 1:] - tile_off[:, :-1]).to(torch.int64)[:, :T]
+    ex = torch.where(n > chunk, torch.div(n - 1, chunk, rounding_mode="floor"), 0)
+    off = torch.cumsum(ex, dim=1) - ex
+    E_max = int(M) // chunk + 1
+    items = torch.zeros((W * E_max, 2), dtype=torch.int32, device=dev)
+    flat = ex.reshape(-1)
+    which = torch.repeat_interleave(torch.arange(W * T, device=dev), flat)
+    if which.numel():
+        first = torch.repeat_interleave(torch.cumsum(flat, 0) - flat, flat)
+        j = torch.arange(which.numel(), device=dev) - first + 1
+        pos = torch.div(which, T, rounding_mode="floor") * E_max + off.reshape(-1)[which] + j - 1
+        items[pos] = torch.stack((which % T, j), dim=1).to(torch.int32)
+    return (off.to(torch.int32), items.reshape(W, E_max, 2), ex.sum(dim=1).to(torch.int32))
+
+
+_PREP_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+                  + [ctypes.POINTER(ctypes.c_longlong)] * 3
+                  + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+_prep_fn = None  # csrc/entry_prep.cu's entry_prep, resolved at the first launch
+
+
+def _stream(device: torch.device):
+    """The current raw CUDA stream of ``device`` and whether it is the
+    current device (else the caller enters it)."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev), dev == torch.cuda.current_device()
+
+
+def _prep_launch(rows_list, sizes, n_used, tb, trash=None, chunk=ENTRY_CHUNK,
+                 stack=True) -> EntryPrep:
+    """csrc/entry_prep.cu on CUDA rows (counted under ``entry_prep``), with
+    the update's work list for ``chunk`` (0: none).  ``stack``: the rows
+    are ``(W, ...)`` batches and the outputs stack them; else the rows are
+    one batch (any shape) and the prep is that batch's, as
+    :func:`window_prep` would cut it.  ``trash``: per level the row count
+    whose last row is the excluded trashbin (default ``sizes``; 0 makes the
+    pad row -1 the excluded one).  Every output lies in one int32
+    allocation, the scratch in another."""
+    global _prep_fn
+    if _prep_fn is None:
+        fn = cuda_build.load("entry_prep").entry_prep
+        fn.argtypes, fn.restype = _PREP_ARGTYPES, ctypes.c_int
+        _prep_fn = fn
     device = rows_list[0].device
-    W = rows_list[0].shape[0]
+    W = rows_list[0].shape[0] if stack else 1
     L = len(sizes)
-    rows = [r.reshape(W, -1) for r in rows_list]
-    if any(not r.is_contiguous() for r in rows):
-        raise ValueError("rows must be contiguous")
+    rows = [r.reshape(W, -1) for r in rows_list] if stack else rows_list
     ent_off = [0]
     for r in rows:
-        ent_off.append(ent_off[-1] + r.shape[1])
+        if not r.is_contiguous():
+            raise ValueError("rows must be contiguous")
+        ent_off.append(ent_off[-1] + r.numel() // W)
     M = ent_off[-1]
     if M >= _SENTINEL or W > 65535:
         raise ValueError("at most 2**31 - 2 entries per batch and 65,535 batches")
     tile_lo, T = _tiles(n_used, tb)
-    row_off = [sum(sizes[:l]) for l in range(L)]
-    counts = torch.zeros((W, T + 2), dtype=torch.int32, device=device)
-    rank = torch.empty((W, M), dtype=torch.int32, device=device)
-    tile_off = torch.empty((W, T + 1), dtype=torch.int32, device=device)
-    rows_out = torch.empty((W, M), dtype=torch.int32, device=device)
-    order = torch.empty((W, M), dtype=torch.int32, device=device)
-    dropped = torch.empty(W, dtype=torch.int64, device=device)
+    row_off = [0] * L
+    for l in range(1, L):
+        row_off[l] = row_off[l - 1] + sizes[l - 1]
+    E_max = M // chunk + 1 if chunk else 0
+    # the outputs in one allocation: dropped (int64) and split_items (int2 in
+    # the kernels) first, on 8-byte boundaries; the scratch in another, so
+    # that a stack of windows does not keep it
+    n = [2 * W, 2 * W * E_max, W, W * (T + 1), W * M, W * M, W * T if chunk else 0]
+    buf = torch.empty(sum(n), dtype=torch.int32, device=device)
+    dropped, items, n_split, tile_off, rows_out, order, split_off = buf.split_with_sizes(n)
+    counts, rank = torch.empty(W * (T + 2 + M), dtype=torch.int32,
+                               device=device).split_with_sizes([W * (T + 2), W * M])
     rows64 = sum(1 << l for l, r in enumerate(rows) if r.dtype == torch.int64)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn((ctypes.c_void_p * L)(*[r.data_ptr() for r in rows]), rows64,
-                 (ctypes.c_longlong * (L + 1))(*ent_off), L,
-                 (ctypes.c_longlong * L)(*(sizes if trash is None else trash)),
-                 (ctypes.c_longlong * L)(*n_used),
-                 (ctypes.c_longlong * L)(*row_off), (ctypes.c_int * L)(*tile_lo), tb, T, W,
-                 counts.data_ptr(), rank.data_ptr(), tile_off.data_ptr(),
-                 rows_out.data_ptr(), order.data_ptr(), dropped.data_ptr(), stream)
+    dev, stream, current = _stream(device)
+    args = ((ctypes.c_void_p * L)(*[r.data_ptr() for r in rows]), rows64,
+            (ctypes.c_longlong * (L + 1))(*ent_off), L,
+            (ctypes.c_longlong * L)(*(sizes if trash is None else trash)),
+            (ctypes.c_longlong * L)(*n_used),
+            (ctypes.c_longlong * L)(*row_off), (ctypes.c_int * L)(*tile_lo), tb, T, W,
+            counts.data_ptr(), rank.data_ptr(), tile_off.data_ptr(),
+            rows_out.data_ptr(), order.data_ptr(), dropped.data_ptr(), stream, chunk, E_max,
+            split_off.data_ptr(), items.data_ptr(), n_split.data_ptr())
+    if current:
+        err = _prep_fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _prep_fn(*args)
     if err != 0:
         raise RuntimeError(f"entry_prep kernel launch failed: CUDA error {err}")
     LAUNCHES["entry_prep"] += 1
-    return EntryPrep(rows_out, order, tile_off, dropped, tuple(sizes), tuple(n_used), tb)
+    dropped = dropped.view(torch.int64)
+    if stack:
+        split = ((split_off.view(W, T), items.view(W, E_max, 2), n_split) if chunk
+                 else (None,) * 3)
+        return EntryPrep(rows_out.view(W, M), order.view(W, M), tile_off.view(W, T + 1),
+                         dropped, tuple(sizes), tuple(n_used), tb, False, *split, chunk)
+    split = (split_off, items.view(E_max, 2), n_split.view(())) if chunk else (None,) * 3
+    return EntryPrep(rows_out, order, tile_off, dropped.view(()), tuple(sizes), tuple(n_used),
+                     tb, False, *split, chunk)
 
 
 def window_prep(pre: EntryPrep, w: int) -> EntryPrep:
     """Batch ``w``'s EntryPrep of a stack (:func:`entry_prep_stack`)."""
+    split = ((None,) * 3 if pre.split_off is None
+             else (pre.split_off[w], pre.split_items[w], pre.n_split[w]))
     return EntryPrep(pre.rows[w], pre.order[w], pre.tile_off[w], pre.dropped[w], pre.sizes,
-                     pre.n_used, pre.tb, pre.sorted_by_row)
+                     pre.n_used, pre.tb, pre.sorted_by_row, *split, pre.chunk)
 
 
 def _prep_for(pre, rows_list, sizes, n_used, D, device):
-    """``pre``, checked against this call, or a fresh one."""
-    M = sum(int(r.numel()) for r in rows_list)
+    """``pre``, checked against this call, or a fresh one (on CUDA rows
+    csrc/entry_prep.cu straight away: the step has checked the sizes and
+    heads)."""
     if pre is None:
         if any(r.device != device for r in rows_list):
             raise ValueError("entries must lie on the tables' device")
-        return entry_prep(rows_list, sizes, n_used, D)
+        if device.type != "cuda":
+            return entry_prep(rows_list, sizes, n_used, D)
+        if any(r.dtype not in (torch.int32, torch.int64) for r in rows_list):
+            raise TypeError("rows must be int32/int64")
+        if sum(sizes) >= _SENTINEL:
+            raise ValueError("tables of 2**31 - 1 rows or more in all are not supported")
+        return _prep_launch(rows_list, sizes, n_used, tile_rows(D), stack=False)
+    M = sum(int(r.numel()) for r in rows_list)
     if (pre.sizes != tuple(sizes) or pre.n_used != tuple(n_used) or pre.tb != tile_rows(D)
             or pre.rows.shape != (M,) or pre.rows.device != device):
         raise ValueError(
@@ -520,54 +626,105 @@ def _entry_offsets(g_list, rows_list, D, device):
 
 
 def _check_aligned(named):
+    """Each tensor's data_ptr, checked to lie on a 16-byte boundary; returns
+    them, one list per name."""
+    out = []
     for name, ts in named:
-        for t in ts:
-            if t.data_ptr() % 16:
+        ptrs = [t.data_ptr() for t in ts]
+        for x in ptrs:
+            if x % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary (the kernel "
                                  "reads it 16 bytes at a time); got a view at "
-                                 f"{t.data_ptr() % 16} bytes past one")
+                                 f"{x % 16} bytes past one")
+        out.append(ptrs)
+    return out
+
+
+_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] * 4
+             + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] * 3
+             + [ctypes.POINTER(ctypes.c_longlong)] * 2
+             + [ctypes.POINTER(ctypes.c_float)]
+             + [ctypes.c_float] * 7
+             + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
+_EX_ARGTYPES = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]  # row_base, det
+_SPLIT_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5  # chunk, E_max, work list, scratch
+_entries: Dict[str, ctypes._CFuncPtr] = {}  # csrc/fused_adam.cu's, resolved at first use
+# per device: the split tiles' f32 slots and arrival counters, zero between
+# launches (each launch leaves them zero); grown when a launch needs more
+_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def c_entry(lib: ctypes.CDLL, name: str) -> ctypes._CFuncPtr:
+    """``lib.<name>`` (an entry point of csrc/fused_adam.cu, or of another
+    copy of it with the same interface) with its C signature declared."""
+    fn = getattr(lib, name)
+    fn.argtypes = (_ARGTYPES + (_EX_ARGTYPES if "_ex_" in name else [])
+                   + _SPLIT_ARGTYPES)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _split_scratch(dev: int, slots: int, elems: int):
+    """Device ``dev``'s zeroed scratch for ``slots`` split tiles of
+    ``elems`` elements: (f32 slots, int32 arrival counters)."""
+    acc, arrive = _scratch.get(dev, (None, None))
+    if acc is None or acc.numel() < slots * elems or arrive.numel() < slots:
+        n = max(slots * elems, 0 if acc is None else acc.numel())
+        acc = torch.zeros(n, dtype=torch.float32, device=torch.device("cuda", dev))
+        arrive = torch.zeros(max(slots, 0 if arrive is None else arrive.numel()),
+                             dtype=torch.int32, device=acc.device)
+        _scratch[dev] = (acc, arrive)
+    return acc, arrive
 
 
 def _launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
-            eps, grads_bf16=False, seed=0, lib=None, row_base=None, det=False):
+            eps, grads_bf16=False, seed=0, lib=None, row_base=None, det=False, ptrs=None):
     """One launch of csrc/fused_adam.cu's ``variant`` (``lib``: the library
     of another copy of it with the same interface) on ``pre``'s binned
     entries (no counting).  ``row_base`` (a row shard's first row per
     level) or ``det`` (the sorted, deterministic sum) take the ``_ex`` entry
-    points.  Returns whether a kernel ran (some used head is non-empty)."""
+    points.  ``pre``'s work list splits its hot tiles over several CTAs
+    unless ``det`` (each row summed in entry order, one CTA a tile).
+    ``ptrs``: the tables' and gradients' data_ptr lists, where
+    the caller has them.  Returns whether a kernel ran (some used head is
+    non-empty)."""
     ex = row_base is not None or det
     name = _C_ENTRY[variant].replace("fused_adam_", "fused_adam_ex_") if ex else _C_ENTRY[variant]
-    fn = getattr(lib or cuda_build.load("fused_adam"), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 4
-                       + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 3
-                       + [ctypes.POINTER(ctypes.c_longlong)] * 2
-                       + [ctypes.POINTER(ctypes.c_float)]
-                       + [ctypes.c_float] * 7
-                       + [ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
-                       + ([ctypes.POINTER(ctypes.c_longlong), ctypes.c_int] if ex else []))
-        fn.restype = ctypes.c_int
+    if lib is not None:
+        fn = c_entry(lib, name)
+    else:
+        fn = _entries.get(name)
+        if fn is None:
+            fn = _entries[name] = c_entry(cuda_build.load("fused_adam"), name)
     L = len(offs)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * L)(*[t.data_ptr() for t in ts])
-
-    extra = ()
+    D = ps[0].shape[1]
+    dev, stream, current = _stream(ps[0].device)
+    work = (0, 1, 0, 0, 0, 0, 0)
+    if not det and pre.chunk:
+        E_max = pre.split_items.shape[0]
+        acc, arrive = _split_scratch(dev, E_max, pre.tb * D)
+        work = (pre.chunk, E_max, pre.split_off.data_ptr(), pre.split_items.data_ptr(),
+                pre.n_split.data_ptr(), acc.data_ptr(), arrive.data_ptr())
+    if ptrs is None:
+        ptrs = [[t.data_ptr() for t in ts] for ts in (ps, ms, vs, gs)]
+    P = ctypes.c_void_p * L
+    args = (P(*ptrs[0]), P(*ptrs[1]), P(*ptrs[2]), P(*ptrs[3]),
+            (ctypes.c_longlong * L)(*ent_off),
+            pre.rows.data_ptr(), pre.order.data_ptr(), pre.tile_off.data_ptr(), D, pre.tb, L,
+            (ctypes.c_longlong * L)(*offs), (ctypes.c_longlong * L)(*n_used),
+            (ctypes.c_float * L)(*lrs), b1, b2, 1.0 - b1, 1.0 - b2,
+            float(bc1), float(bc2), eps, int(bool(grads_bf16)), int(seed) & 0xFFFFFFFF, stream)
     if ex:
-        extra = ((ctypes.c_longlong * L)(*(row_base or [0] * L)), int(bool(det)))
-    with torch.cuda.device(ps[0].device):
-        stream = torch.cuda.current_stream(ps[0].device).cuda_stream
-        err = fn(ptrs(ps), ptrs(ms), ptrs(vs), ptrs(gs), (ctypes.c_longlong * L)(*ent_off),
-                 pre.rows.data_ptr(), pre.order.data_ptr(), pre.tile_off.data_ptr(),
-                 ps[0].shape[1], pre.tb, L,
-                 (ctypes.c_longlong * L)(*offs), (ctypes.c_longlong * L)(*n_used),
-                 (ctypes.c_float * L)(*lrs), b1, b2, 1.0 - b1, 1.0 - b2,
-                 float(bc1), float(bc2), eps, int(bool(grads_bf16)),
-                 int(seed) & 0xFFFFFFFF, stream, *extra)
+        args += ((ctypes.c_longlong * L)(*(row_base or [0] * L)), int(bool(det)))
+    if current:
+        err = fn(*args, *work)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, *work)
     if err != 0:
         raise RuntimeError(f"fused_adam kernel launch failed: CUDA error {err}")
-    return sum(n > 0 for n in n_used) > 0
+    return any(n > 0 for n in n_used)
 
 
 @torch.no_grad()
@@ -600,15 +757,17 @@ def _step(entry, ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
     sizes, n_used, offs, lrs = _levels(ps, n_used, lr, lr_scales)
     D = ps[0].shape[1]
     ent_off = _entry_offsets(g_list, rows_list, D, device)
-    _check_aligned((("p", ps), ("m", ms), ("v", vs), ("grads", g_list)))
-    if deterministic and pre is None:
+    ptrs = _check_aligned((("p", ps), ("m", ms), ("v", vs), ("grads", g_list)))
+    if deterministic and pre is None:  # no work list: the sum in order never splits
         pre = entry_prep_stack_plain([r.reshape(1, -1) for r in rows_list], sizes, n_used,
-                                     tile_rows(D))
+                                     tile_rows(D), 0)
         pre = window_prep(pre, 0)
     pre = _prep_for(pre, rows_list, sizes, n_used, D, device)
     if _launch(variant, ps, ms, vs, g_list, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2,
-               eps, grads_bf16, 0 if sr_seed is None else sr_seed, det=deterministic):
+               eps, grads_bf16, 0 if sr_seed is None else sr_seed, det=deterministic,
+               ptrs=ptrs):
         LAUNCHES[entry + _SUFFIX[variant]] += 1
+        LEVEL_STEPS[entry + _SUFFIX[variant]] += len(ps)
     return pre.dropped
 
 
@@ -659,6 +818,42 @@ def fused_adam(p, m, v, rows, grads, lr, bc1, bc2, n_used: Optional[int] = None,
     return _step("fused_adam", [p], [m], [v], [rows], [grads], lr, bc1, bc2,
                  [1.0], None if n_used is None else [n_used], b1, b2, eps,
                  grads_bf16, None, pre, None, deterministic)
+
+
+def fused_adam_levels(ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
+                      n_used=None, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-15,
+                      grads_bf16: bool = False, pre: Optional[EntryPrep] = None,
+                      deterministic: bool = False):
+    """K1's per-level step on L levels: level l's ``(C_l, D)`` table takes
+    :func:`fused_adam`'s step with its own entries and lr ``lr *
+    lr_scales[l]``, as L :func:`fused_adam` calls (the JAX package's L
+    ``fused_adam_packed`` calls, trainer.py:1330).
+
+    On CPU tensors exactly those L calls, each through
+    :func:`fused_adam_plain` (given a ``pre``, the plain step on it, which
+    gives the same bits).  On CUDA tensors one prep of all L levels
+    (``pre``: :func:`entry_prep` of these rows, sizes and heads, built here
+    when None) and ONE launch of the kernel with each level's lr: a row's
+    result depends only on its level's entries and lr, so it is the
+    per-level launches' step (bit for bit on rows of at most one entry).
+    Counted once under ``fused_adam`` (and the variant), with L levels in
+    :data:`LEVEL_STEPS`.  f32 p only, as :func:`fused_adam`.  Returns the
+    dropped-entry count."""
+    if ps[0].dtype != torch.float32:
+        raise TypeError(f"fused_adam_levels takes float32 parameters, got {ps[0].dtype}: "
+                        "bf16 tables ride fused_adam_multi with an sr_seed")
+    if ps[0].device.type == "cpu" and pre is None:
+        _check_tables(ps, ms, vs)
+        _per_level(ps, rows_list, g_list)
+        sizes, n_used, _, lrs = _levels(ps, n_used, lr, lr_scales)
+        dropped = torch.zeros((), dtype=torch.int64)
+        for l in range(len(ps)):
+            dropped = dropped + fused_adam_plain(ps[l], ms[l], vs[l], rows_list[l], g_list[l],
+                                                 lrs[l], bc1, bc2, n_used[l], b1, b2, eps,
+                                                 grads_bf16)
+        return dropped
+    return _step("fused_adam", ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales,
+                 n_used, b1, b2, eps, grads_bf16, None, pre, None, deterministic)
 
 
 # ------------------------------------------------------------------ row shards
@@ -766,9 +961,8 @@ def entry_prep_shard(rows_list: Sequence[torch.Tensor], sizes_loc: Sequence[int]
         raise ValueError(f"entry_prep_shard runs on cuda (or cpu), not {device}")
     if sum(sizes) >= _SENTINEL:
         raise ValueError("shards of 2**31 - 1 rows or more are not supported")
-    pre = _prep_launch([r.reshape(1, -1) for r in rows_list], sizes, sizes, tile_rows(dim),
-                       trash=[0] * len(sizes))
-    return window_prep(pre, 0)
+    return _prep_launch(rows_list, sizes, sizes, tile_rows(dim), trash=[0] * len(sizes),
+                        stack=False)
 
 
 def _shard_args(ps, ms, vs, rows_loc, g_loc, lr, lr_scales, row_base, pre):

@@ -21,10 +21,12 @@ tables, ``body_dense``, :1001, which also runs SGD).  One kernel step:
    second order);
 4. Adam on the decoders (``optimizer.adam_update``);
 5. the dense Adam step on the feature tables through the fused kernel
-   (``ops/adam_kernel.py``), fed with the gathered rows' gradients: one
-   launch per level (K1) or one over all levels (K2), with the row prep of
-   a window precomputed.  The consistency term's near points add their rows
-   and gradients to the batch's as extra entries.
+   (``ops/adam_kernel.py``), fed with the gathered rows' gradients: K1's
+   per-level step (on iid batches one prep and one launch over all levels,
+   each level with its lr; on per-level windows one launch a level) or K2
+   (one launch over all levels), with the row prep of a window
+   precomputed.  The consistency term's near points add their rows and
+   gradients to the batch's as extra entries.
 
 JAX runs a chunk as one jitted ``lax.scan``; here it is a Python loop of
 eager torch ops that update the parameters and the optimizer state in
@@ -640,10 +642,11 @@ def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes,
     ``estimate_windows_bytes``, trainer.py:1807, on the port's layout): per
     window the int64 indices and, per entry (bs x 8 corners x L levels),
     an int32 row and an int32 order (and with ``reg_cover`` a bool owner
-    flag), plus per prep an int64 dropped count and an int32 offset per
-    tile of the update kernel and one more (``feat_shapes``: the tables'
-    (C_l, D)).  Counted for the per-level layout, whose L preps hold L - 1
-    tile offsets more than the fused one.  ``shards``: one rank's share of
+    flag), plus per prep an int64 dropped count, an int32 offset per tile
+    of the update kernel and one more, and the kernel's work list
+    (``feat_shapes``: the tables' (C_l, D)).  Counted for the per-level
+    layout, whose L preps hold L - 1 tile offsets and work-list bounds more
+    than the fused one.  ``shards``: one rank's share of
     routed windows over that many ranks."""
     s = settings
     W = max(-(int(n_valid) // -s.bs), 1)
@@ -664,7 +667,10 @@ def estimate_windows_bytes(n_valid: int, settings: TrainSettings, feat_shapes,
         return W * (8 * s.bs + 4 * 4 * n * L * E + 4 * L * (s.bs // n) * 8
                     + 4 * (tiles_loc + 1) + 8)
     per_entry = 8 + (1 if reg_cover else 0)
-    return W * (8 * s.bs + per_entry * s.bs * 8 * L + 8 * L + 4 * (tiles + L))
+    # per prep also the update's work list: a first extra item per tile, and
+    # (tile, chunk) pairs for at most M / ENTRY_CHUNK + 1 items and their count
+    work = 4 * tiles + L * (8 * (8 * s.bs // adam_kernel.ENTRY_CHUNK + 1) + 4)
+    return W * (8 * s.bs + per_entry * s.bs * 8 * L + 8 * L + 4 * (tiles + L) + work)
 
 
 def owner_flags(corners: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
@@ -1699,10 +1705,10 @@ def train_chunk(
                 feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
                 lr_scale[FEATURES], n_used, **kw))
         else:
-            for i in range(L):
-                dropped.add_(adam_kernel.fused_adam(
-                    feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
-                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i], **kw))
+            # K1 per level: on the card one prep and one launch for all levels
+            dropped.add_(adam_kernel.fused_adam_levels(
+                feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
+                lr_scale[FEATURES], n_used, **kw))
         return aux
 
     dropped = torch.zeros((), dtype=torch.int64, device=device)

@@ -519,6 +519,97 @@ def test_entry_prep_plain_matches_numpy():
     np.testing.assert_array_equal(single.order.numpy(), tak.window_prep(pre, 1).order.numpy())
 
 
+def _work_list_numpy(rows_list, sizes, n_used, tb, chunk):
+    """An independent numpy transcription of the update's work list for one
+    batch, from the entries themselves: each tile's kept entries counted
+    (trashbin and out-of-head entries excluded), a tile of n > chunk
+    entries split into ceil(n / chunk) items, the k - 1 extra ones listed
+    tile by tile as (tile, j)."""
+    counts = []
+    for rows, C, nu in zip(rows_list, sizes, n_used):
+        r = np.asarray(rows, np.int64).reshape(-1)
+        keep = (r >= 0) & (r < nu) & (r != C - 1)
+        counts += list(np.bincount(r[keep] // tb, minlength=-(-nu // tb)))
+    first, items = [], []
+    for t, n in enumerate(counts):
+        first.append(len(items))
+        k = -(-int(n) // chunk) if n > chunk else 1
+        items += [(t, j) for j in range(1, k)]
+    return np.array(first), np.array(items, np.int64).reshape(-1, 2), len(items)
+
+
+@pytest.mark.parametrize("chunk", [16, 512])
+def test_work_list_plain_matches_numpy(chunk):
+    """The update's work list (``work_list_plain``, the plain twin of
+    csrc/entry_prep.cu's scan) as an independent numpy count of each tile's
+    entries: hot tiles (a row taking 1,500 entries, another level's 900
+    entries on one tile), an empty level, heads that are not a multiple of
+    the tile, trashbin, negative and out-of-head entries, int32 and int64
+    rows; batch by batch of a stack, zero past each batch's count."""
+    rng = np.random.default_rng(19)
+    sizes, n_used, W = (4096, 2048, 1024, 4096), (3001, 0, 1000, 300), 3
+    tb = tak.tile_rows(D)
+    stack = []
+    for l, (C, nu) in enumerate(zip(sizes, n_used)):
+        r = rng.integers(0, max(nu, 1), (W, 2000))
+        if l == 0:
+            r[:, :1500] = 1234  # a hot row
+        if l == 3:
+            r[:, 100:1000] = rng.integers(0, 256, (W, 900))  # a hot tile
+        r[rng.random(r.shape) < 0.2] = C - 1  # trashbin
+        r[:, 1500:1504] = [nu + 7, -1, C - 2, C - 1]
+        stack.append(torch.from_numpy(r.astype(np.int64 if l == 2 else np.int32)))
+    pre = tak.entry_prep_stack_plain(stack, sizes, n_used, tb, chunk)
+    E_max = 4 * 2000 // chunk + 1
+    assert pre.chunk == chunk and tuple(pre.split_items.shape) == (W, E_max, 2)
+    assert pre.split_off.dtype == pre.split_items.dtype == pre.n_split.dtype == torch.int32
+    for w in range(W):
+        first, items, n = _work_list_numpy([s[w].numpy() for s in stack], sizes, n_used, tb,
+                                           chunk)
+        one = tak.window_prep(pre, w)
+        np.testing.assert_array_equal(one.split_off.numpy(), first)
+        assert int(one.n_split) == n > 0
+        np.testing.assert_array_equal(one.split_items[:n].numpy(), items)
+        assert not one.split_items[n:].any()
+    # the default prep carries the kernel's chunk
+    assert tak.entry_prep([s[0] for s in stack], sizes, n_used, D).chunk == tak.ENTRY_CHUNK
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_levels_step_equals_per_level_plain_calls(deterministic):
+    """K1's per-level step in one call (``fused_adam_levels``) on the CPU is
+    the L per-level ``fused_adam_plain`` calls bit for bit, and so is the
+    arithmetic of the card's one launch: the plain multi-level step on ONE
+    prep of all levels (``fused_adam_multi_plain`` with each level's lr
+    scale), hot rows, trashbin entries and heads past a tile included."""
+    rng = np.random.default_rng(23)
+    sizes, n_used, scales = (2048, 1024, 512, 512), (1500, 1024, 300, 257), (1.0, .5, .25, .125)
+    levels = [_level(rng, C, nu, 3000) for C, nu in zip(sizes, n_used)]
+    for lv in levels[2:]:
+        lv[3][:2000] = 17  # a hot row
+    rows = [torch.from_numpy(lv[3]) for lv in levels]
+    grads = [torch.from_numpy(lv[4]) for lv in levels]
+    want = [[torch.from_numpy(lv[k].copy()) for lv in levels] for k in range(3)]
+    for l in range(4):
+        tak.fused_adam_plain(*(t[l] for t in want), rows[l], grads[l], LR * scales[l], BC1,
+                             BC2, n_used[l])
+    one_call = [[torch.from_numpy(lv[k].copy()) for lv in levels] for k in range(3)]
+    dropped = tak.fused_adam_levels(*one_call, rows, grads, LR, BC1, BC2, scales, n_used,
+                                    deterministic=deterministic)
+    assert int(dropped) == 0
+    one_prep = [[torch.from_numpy(lv[k].copy()) for lv in levels] for k in range(3)]
+    pre = tak.entry_prep(rows, sizes, n_used, D)
+    assert int(pre.n_split) > 0
+    tak.fused_adam_multi_plain(*one_prep, rows, grads, LR, BC1, BC2, scales, n_used, pre=pre)
+    for got in (one_call, one_prep):
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x.numpy(), y.numpy())
+    with pytest.raises(TypeError, match="float32 parameters"):
+        tak.fused_adam_levels(*[[t.bfloat16() for t in tabs] for tabs in want], rows, grads,
+                              LR, BC1, BC2, scales, n_used)
+
+
 def _philox_numpy(seed, level, n):
     """Philox4x32-10 (Salmon et al., SC'11) in numpy uint64: counter
     (k lo, k hi, level, 0), key (seed, 0x53524E44), 16 bits per element."""

@@ -195,6 +195,13 @@ def test_kernel_prep_matches_plain(cuda_device):
     assert ak.LAUNCHES["entry_prep"] == before + 1
     assert torch.equal(kern.tile_off.cpu(), plain.tile_off)
     assert torch.equal(kern.dropped.cpu(), plain.dropped) and int(plain.dropped[0]) == 15
+    # the update's work list: the hot row's tile is split into chunks
+    assert kern.chunk == plain.chunk == ak.ENTRY_CHUNK
+    assert torch.equal(kern.n_split.cpu(), plain.n_split) and int(plain.n_split[0]) > 0
+    assert torch.equal(kern.split_off.cpu(), plain.split_off)
+    for w in range(W):
+        n = int(plain.n_split[w])
+        assert torch.equal(kern.split_items[w, :n].cpu(), plain.split_items[w, :n])
     for w in range(W):
         bounds = plain.tile_off[w].tolist() + [plain.rows.shape[1]]
         for a, b in zip(bounds[:-1], bounds[1:]):
@@ -865,9 +872,12 @@ def test_reg_steps_card_equals_cpu(cuda_device, fused_windows):
         params, opt, aux = trainer.train_chunk(params, init_opt_state(params), grid.tables,
                                                pool, n, 0, None, s, 5, shadow=shadow, **kw)
         out[side] = (params, opt, aux, dict(ak.LAUNCHES))
+        if side == "card" and not fused_windows:
+            assert ak.LEVEL_STEPS["fused_adam"] == 15
     (pc, oc, ac, lc), (pp, op, ap, _) = out["card"], out["cpu"]
-    assert lc["fused_adam_multi" if fused_windows else "fused_adam"] == (5 if fused_windows
-                                                                           else 15)
+    # iid: K1's per-level step, one launch a step over the 3 levels
+    key = "fused_adam_multi" if fused_windows else "fused_adam"
+    assert lc[key] == 5
     np.testing.assert_allclose(float(ac["mean"]["reg_loss"]), float(ap["mean"]["reg_loss"]),
                                rtol=1e-5)
     assert float(ap["last"]["reg_loss"]) > 0
@@ -1066,3 +1076,174 @@ def test_shard_kernel_on_a_live_prep(cuda_device, variant):
                                    c[s_].view(torch.int16) if c.itemsize == 2 else c[s_])
                 if a.dtype == torch.float32:
                     torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------------ small, hot tables
+
+# run (l)'s final tables (rgbd_incre_reg.yaml, chip_smoke.py phase 11) and
+# run (k)'s (rgbd_batch.yaml): 32,768 entries a level
+HOT_L = ((65536,) * 4, (20480, 5120, 1024, 1024))
+HOT_K = ((524288, 65536, 65536, 65536), (286720, 22528, 21504, 21504))
+
+
+def _hot_case(rng, sizes, n_used, M, device, one_row=None):
+    """chip_smoke.py's kernel inputs (~1e-3 gradients, 30 % trashbin
+    entries, a tenth duplicated) at small tables; ``one_row``: that level's
+    entries all on one row."""
+    import chip_smoke
+
+    tabs0, rows_l, g_l = chip_smoke._kernel_inputs(rng, sizes, n_used, M, D, device)
+    if one_row is not None:
+        rows_l[one_row] = torch.full_like(rows_l[one_row], n_used[one_row] // 2)
+    return tabs0, rows_l, g_l
+
+
+def _spread(tabs0, rows_l, g_l, lrs, n_used, **kw):
+    import chip_smoke
+
+    sp = [chip_smoke._sum_order_spread([t[lv] for t in tabs0], rows_l[lv], g_l[lv], lrs[lv],
+                                       BC1, BC2, n_used[lv], **kw) for lv in range(len(lrs))]
+    return [[s_[t][0] for s_ in sp] for t in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["l", "l_one_row", "k"])
+def test_levels_kernel_on_small_hot_tables_matches_plain(cuda_device, case):
+    """K1's per-level step in one launch (``fused_adam_levels``: one prep, a
+    work list that splits the hot tiles, each level's lr) on run (l)'s
+    tables (levels of 1,024 used rows taking 32,768 entries each), with one
+    row taking all of a level's entries, and on run (k)'s 4 levels: against
+    L per-level plain steps at chip_smoke.py phase 2's tolerance plus the
+    sum-order spread, bit-equal on rows of at most one entry, headroom
+    untouched; one launch counted, with 4 levels.  A second launch on the
+    same prep gives the same result (the split tiles' scratch was left
+    zero)."""
+    import chip_smoke
+
+    sizes, n_used = HOT_K if case == "k" else HOT_L
+    rng = np.random.default_rng(21)
+    tabs0, rows_l, g_l = _hot_case(rng, sizes, n_used, 32768, cuda_device,
+                                   one_row=3 if case == "l_one_row" else None)
+    scales = [1.0, 0.5, 0.25, 0.125]
+    lrs = [LR * s_ for s_ in scales]
+    plain = [[t.clone() for t in lv] for lv in tabs0]
+    for lv in range(4):
+        ak.fused_adam_plain(*(t[lv] for t in plain), rows_l[lv], g_l[lv], lrs[lv], BC1, BC2,
+                            n_used[lv])
+    single = chip_smoke._single_rows(rows_l, list(sizes), list(n_used))
+    spread = _spread(tabs0, rows_l, g_l, lrs, n_used)
+    pre = ak.entry_prep(rows_l, list(sizes), list(n_used), D)
+    # (l)'s levels of 1,024 used rows hold ~8,192 entries a tile: split;
+    # (k)'s tiles hold under ENTRY_CHUNK entries: one launch, one CTA a tile
+    assert (int(pre.n_split) > 0) == (case != "k"), int(pre.n_split)
+    for given in (None, pre):
+        kern = [[t.clone() for t in lv] for lv in tabs0]
+        ak.reset_launch_counts()
+        ak.fused_adam_levels(*kern, rows_l, g_l, LR, BC1, BC2, scales, list(n_used), pre=given)
+        torch.cuda.synchronize()
+        assert ak.LAUNCHES["fused_adam"] == 1 and ak.LEVEL_STEPS["fused_adam"] == 4
+        assert ak.LAUNCHES["entry_prep"] == (1 if given is None else 0)
+        chip_smoke._check_f32(kern, plain, tabs0, list(n_used), single=single,
+                              moved_share=None, spread=spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "bf16m", "bf16p"])
+def test_multi_kernel_variants_on_hot_tables_match_plain(cuda_device, variant):
+    """The template's three dtype variants through the split tiles (K2 at
+    run (l)'s tables, one level's entries all on one row): f32 p, m, v at
+    phase 2's tolerance plus the sum-order spread; bf16 moments within one
+    bf16 ulp but for TIE_SHARE ties, their f32 p as f32; bf16 p (stochastic
+    rounding) within one bf16 ulp of the plain version, which rounds with
+    the kernel's Philox bits; every table bit-equal on rows of at most one
+    entry."""
+    import chip_smoke
+
+    sizes, n_used = HOT_L
+    rng = np.random.default_rng(22)
+    tabs0, rows_l, g_l = _hot_case(rng, sizes, n_used, 32768, cuda_device, one_row=2)
+    pd = torch.bfloat16 if variant == "bf16p" else torch.float32
+    md = torch.float32 if variant == "f32" else torch.bfloat16
+    t0 = [[t.to(dt) for t in lv] for lv, dt in zip(tabs0, (pd, md, md))]
+    scales = [1.0, 0.5, 0.25, 0.125]
+    kw = dict(grads_bf16=variant != "f32", sr_seed=9 if variant == "bf16p" else None)
+    kern = [[t.clone() for t in lv] for lv in t0]
+    plain = [[t.clone() for t in lv] for lv in t0]
+    ak.fused_adam_multi(*kern, rows_l, g_l, LR, BC1, BC2, scales, list(n_used), **kw)
+    ak.fused_adam_multi_plain(*plain, rows_l, g_l, LR, BC1, BC2, scales, list(n_used), **kw)
+    torch.cuda.synchronize()
+    single = chip_smoke._single_rows(rows_l, list(sizes), list(n_used))
+    for t in range(3):
+        for a, b, s_ in zip(kern[t], plain[t], single):
+            bits = (lambda x: x.view(torch.int16 if x.itemsize == 2 else torch.int32))
+            assert torch.equal(bits(a[s_]), bits(b[s_])), "a single-entry row differs"
+    lrs = [LR * s_ for s_ in scales]
+    f32 = [[t.float() for t in lv] for lv in t0]
+    spread = _spread(f32, rows_l, g_l, lrs, n_used, grads_bf16=variant != "f32")
+    if variant == "f32":
+        chip_smoke._check_f32(kern, plain, t0, list(n_used), single=single, moved_share=None,
+                              spread=spread)
+        return
+    chip_smoke._check_bf16_ties(kern[1:], plain[1:], t0[1:], list(n_used), moved_share=None)
+    if variant == "bf16m":
+        chip_smoke._check_f32(kern[:1], plain[:1], t0[:1], list(n_used), names="p",
+                              single=single, moved_share=None, spread=spread[:1])
+        return
+    for a, b, nu in zip(kern[0], plain[0], n_used):
+        a32, b32 = a[:nu].float(), b[:nu].float()
+        over = (a32 - b32).abs() - 2.0 ** -7 * b32.abs() - 2.0 ** -20 * float(b32.abs().max())
+        assert float(over.max()) <= 0, "bf16 p more than one bf16 ulp from plain"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_kernel_on_hot_live_prep_matches_plain(cuda_device, n):
+    """K2's row-sharded caller (the ``_ex`` entry points: each block's place
+    in the whole table keys its Philox groups) on a live prep whose tiles
+    are split (a third of every level's entries on one row of shard 0):
+    each of n shards, bf16 p with stochastic rounding, bit-equal to its
+    plain version on rows of at most one entry and within one bf16 ulp
+    elsewhere (moments but for TIE_SHARE ties)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(23)
+    C, L, M = 1 << 14, 3, 24000
+    b = C // n
+    tabs, rows_l, g_l = _tables_and_entries(rng, [C] * L, [C] * L, M, "cpu")
+    for r in rows_l:
+        r[: M // 3] = 5  # a hot row of shard 0
+    whole = [[torch.from_numpy(a).to(torch.bfloat16) for a in lv] for lv in tabs]
+    single = [torch.bincount(r[r != C - 1].long(), minlength=C) <= 1 for r in rows_l]
+    kw = dict(grads_bf16=True, sr_seed=13)
+    for k in range(n):
+        rows_list, gs = [], []
+        for l in range(L):
+            r = rows_l[l].long()
+            sel = (r // b == k) & (r != C - 1)
+            rows_list.append((r[sel] - k * b).to(torch.int32))
+            gs.append(g_l[l][sel])
+        g_loc = torch.cat(gs)
+        pre = ak.entry_prep_shard([r.to(cuda_device) for r in rows_list], [b] * L, D)
+        if k == 0:
+            assert int(pre.n_split) > 0, "no tile was split"
+        plain_pre = ak.entry_prep_shard(rows_list, [b] * L, D)
+        loc = [[t[k * b:(k + 1) * b].clone() for t in lv] for lv in whole]
+        card = [[t.to(cuda_device) for t in lv] for lv in loc]
+        base = ak.shard_row_base([(C, D)] * L, n, k)
+        ak.fused_adam_shard(*card, None, g_loc.to(cuda_device), LR, BC1, BC2,
+                            [1.0, 0.5, 0.25], base, pre=pre, **kw)
+        ak.fused_adam_shard_plain(*loc, None, g_loc, LR, BC1, BC2, [1.0, 0.5, 0.25], base,
+                                  pre=plain_pre, **kw)
+        got = [[t.cpu() for t in lv] for lv in card]
+        for t in range(3):
+            for l in range(L):
+                s_ = single[l][k * b:(k + 1) * b]
+                assert torch.equal(got[t][l][s_].view(torch.int16),
+                                   loc[t][l][s_].view(torch.int16))
+        t0 = [[t[k * b:(k + 1) * b] for t in lv] for lv in whole]
+        chip_smoke._check_bf16_ties(got[1:], loc[1:], t0[1:], [b] * L, moved_share=None)
+        for a, c in zip(got[0], loc[0]):
+            a32, c32 = a.float(), c.float()
+            over = (a32 - c32).abs() - 2.0 ** -7 * c32.abs() - 2.0 ** -20 * float(
+                c32.abs().max())
+            assert float(over.max()) <= 0, "bf16 p more than one bf16 ulp from plain"

@@ -498,3 +498,80 @@ def test_smoke_k1_check_admits_sum_order_and_catches_faults():
     off = g.clone()
     off[7] *= 1.001
     assert not passes(run(rows, off), spread)
+
+
+def test_smoke_carried_allowance_admits_sum_order_and_catches_faults():
+    """chip_smoke.py phase 7's end-state check after 5 reg-like steps (rows
+    whose entries cancel to 1e-3 of their largest term, as at lambda 1e6):
+    the tolerance it had plus the allowance carried from each step's
+    sum-order spread (``_CarriedAllowance``, built from the checked run's
+    own inputs, as on the card).  A run that differs only in the order of
+    each row's entries (on the CPU ``index_add_`` sums in entry order)
+    passes it, though some such run fails the tolerance alone; a run that
+    lost one entry in one step, or took a row's largest entry 1e-3 off,
+    fails it."""
+    import chip_smoke
+
+    rng = np.random.default_rng(8)
+    C, D, n_used, M, steps, lr = 1024, 8, 1000, 6000, 5, 1e-2
+    entries = []
+    for _ in range(steps):
+        rows = rng.integers(0, n_used, M)
+        g = rng.normal(size=(M, D)) * 0.1
+        big = rng.normal(size=(C, D)) * 300
+        k = np.bincount(rows, minlength=C)
+        first = np.zeros(M, bool)
+        first[np.unique(rows, return_index=True)[1]] = True
+        g += np.where(first[:, None], big[rows],
+                      -0.999 * big[rows] / np.maximum(k[rows] - 1, 1)[:, None])
+        entries.append((torch.from_numpy(rows.astype(np.int32)),
+                        torch.from_numpy(g.astype(np.float32)), int(np.flatnonzero(first)[3])))
+    t0 = [torch.from_numpy(rng.normal(size=(C, D)).astype(np.float32)),
+          torch.zeros(C, D), torch.zeros(C, D)]
+
+    def run(seed=None, fault=None):
+        """5 plain steps; ``seed`` permutes each step's entries; ``fault``
+        ("drop" / "scale") alters step 2's entries behind the allowance's
+        back.  Returns (tables, the carried allowance)."""
+        tabs = [t.clone() for t in t0]
+        carried = chip_smoke._CarriedAllowance()
+        for t, (rows, g, big) in enumerate(entries):
+            bc1, bc2 = 1 - 0.9 ** (t + 1), 1 - 0.99 ** (t + 1)
+            before = [x.clone() for x in tabs]
+            plain = [x.clone() for x in tabs]
+            adam_kernel.fused_adam_plain(*plain, rows, g, lr, bc1, bc2, n_used, eps=1e-3)
+            r, gg = rows, g
+            if seed is not None:
+                perm = torch.from_numpy(np.random.default_rng(seed + t).permutation(M))
+                r, gg = rows[perm], g[perm]
+            if fault == "drop" and t == 2:
+                keep = torch.ones(M, dtype=torch.bool)
+                keep[big] = False
+                r, gg = r[keep], gg[keep]
+            if fault == "scale" and t == 2:
+                gg = gg.clone()
+                gg[big] *= 1.001
+            adam_kernel.fused_adam_plain(*tabs, r, gg, lr, bc1, bc2, n_used, eps=1e-3)
+            carried.step(0, before, plain, rows, g, lr, bc1, bc2, n_used, 1e-3)
+        return tabs, carried
+
+    ref, _ = run()
+
+    def passes(tabs, carried, alone=False):
+        try:
+            for k, (a, b) in enumerate(zip(tabs, ref)):
+                atol = 1e-5 if k == 0 else max(1e-5, 1e-6 * float(b.abs().max()))
+                allow = torch.zeros_like(a, dtype=torch.float64) if alone else carried.A[0][k]
+                chip_smoke._end_state_check("pmv"[k], a, b, atol, allow)
+        except AssertionError:
+            return False
+        return True
+
+    past_alone = 0
+    for seed in (0, 10, 20):
+        tabs, carried = run(seed)
+        assert passes(tabs, carried)
+        past_alone += not passes(tabs, carried, alone=True)
+    assert past_alone > 0, "no reordering left the tolerance alone: the case does not cancel"
+    for fault in ("drop", "scale"):
+        assert not passes(*run(0, fault)), fault

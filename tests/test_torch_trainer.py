@@ -188,6 +188,36 @@ def test_train_chunk_trajectory_matches_jax(worlds, mode, fuse):
                                        err_msg=f"{name} features[{i}]")
 
 
+def test_per_level_iid_step_is_one_call_a_step_and_matches_jax(worlds, monkeypatch):
+    """The per-level branch on iid batches (``feature_update: pallas``, no
+    ``fuse_update_levels``) makes ONE ``fused_adam_levels`` call a step
+    over all levels, each with its lr (on the card one prep and one launch;
+    on the CPU the per-level plain steps), and still tracks the JAX
+    package's per-level ``fused_adam_packed`` calls at the tolerance of
+    test_train_chunk_trajectory_matches_jax."""
+    calls = []
+    inner = adam_kernel.fused_adam_levels
+
+    def spy(ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales, n_used=None, **kw):
+        calls.append((len(ps), tuple(lr_scales)))
+        return inner(ps, ms, vs, rows_list, g_list, lr, bc1, bc2, lr_scales, n_used, **kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("the per-level branch called fused_adam level by level")
+
+    monkeypatch.setattr(adam_kernel, "fused_adam_levels", spy)
+    monkeypatch.setattr(adam_kernel, "fused_adam", refuse)
+    got, opt_got, want, opt_want = _train_both(worlds, "pallas", False, adam_eps=1e-3)
+    L = len(want["features"])
+    assert len(calls) == STEPS and all(c[0] == L for c in calls), calls
+    for i in range(L):
+        for name, a, b in (("p", got["features"][i], want["features"][i]),
+                           ("m", opt_got["m"]["features"][i], opt_want.m["features"][i]),
+                           ("v", opt_got["v"]["features"][i], opt_want.v["features"][i])):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{name} features[{i}]")
+
+
 def test_train_chunk_at_reference_eps_tracks_jax(worlds):
     got, _, want, _ = _train_both(worlds, "pallas", True, adam_eps=1e-15)
     for i, (a, b) in enumerate(zip(got["features"], want["features"])):
@@ -387,7 +417,8 @@ def test_precompute_batch_windows_partitions_the_pool(worlds):
     assert len(win.preps) == 1 and len(per.preps) == len(s.levels)
     assert tuple(win.preps[0].rows.shape) == (W, s.bs * 8 * len(s.levels))
     held = sum(t.numel() * t.element_size()
-               for p in per.preps for t in (p.rows, p.order, p.tile_off, p.dropped))
+               for p in per.preps for t in (p.rows, p.order, p.tile_off, p.dropped,
+                                            p.split_off, p.split_items, p.n_split))
     held += win.idx.numel() * win.idx.element_size()
     assert held == trainer.estimate_windows_bytes(n, s, shapes)
     # each window's fused prep holds its levels' per-level preps, offset
