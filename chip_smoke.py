@@ -605,8 +605,8 @@ def _check_sr(p_out, p_exact, p0, n_used, p_again, p_other):
 def _parent_lib():
     """The parent commit's fused_adam.cu library, when the source was copied
     to PARENT_DIR (git-ignored; the command that measures old beside new
-    puts it there), else None; :func:`_launch_parent` speaks its interface,
-    the one without the work list."""
+    puts it there), else None.  It keeps this commit's C interface, so
+    :func:`_launch_parent` launches it through ``adam_kernel._launch``."""
     from shine_mapping_tpu_torch.ops import cuda_build
 
     if not os.path.exists(os.path.join(PARENT_DIR, "fused_adam.cu")):
@@ -617,32 +617,11 @@ def _parent_lib():
 def _launch_parent(lib, variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2,
                    bc1, bc2, eps, grads_bf16=False, seed=0, row_base=None, det=False):
     """One launch of the parent commit's fused_adam.cu (``lib``:
-    :func:`_parent_lib`) through its own C interface, which has no work
-    list: one CTA a tile, on ``pre``'s tile offsets; not counted."""
-    import ctypes
-
-    import torch
-
+    :func:`_parent_lib`) on ``pre`` (its work list included); not counted."""
     from shine_mapping_tpu_torch.ops import adam_kernel as ak
 
-    ex = row_base is not None or det
-    name = ak._C_ENTRY[variant]
-    fn = getattr(lib, name.replace("fused_adam_", "fused_adam_ex_") if ex else name)
-    fn.argtypes = ak._ARGTYPES + (ak._EX_ARGTYPES if ex else [])
-    fn.restype = ctypes.c_int
-    L = len(offs)
-    P = ctypes.c_void_p * L
-    args = [P(*[t.data_ptr() for t in ps]), P(*[t.data_ptr() for t in ms]),
-            P(*[t.data_ptr() for t in vs]), P(*[t.data_ptr() for t in gs]),
-            (ctypes.c_longlong * L)(*ent_off), pre.rows.data_ptr(), pre.order.data_ptr(),
-            pre.tile_off.data_ptr(), ps[0].shape[1], pre.tb, L, (ctypes.c_longlong * L)(*offs),
-            (ctypes.c_longlong * L)(*n_used), (ctypes.c_float * L)(*lrs), b1, b2, 1.0 - b1,
-            1.0 - b2, float(bc1), float(bc2), eps, int(bool(grads_bf16)),
-            int(seed) & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream]
-    if ex:
-        args += [(ctypes.c_longlong * L)(*(row_base or [0] * L)), int(bool(det))]
-    err = fn(*args)
-    assert err == 0, f"parent fused_adam launch failed: CUDA error {err}"
+    ak._launch(variant, ps, ms, vs, gs, ent_off, pre, n_used, offs, lrs, b1, b2, bc1, bc2, eps,
+               grads_bf16, seed, lib=lib, row_base=row_base, det=det)
 
 
 def _in_turns(old, new, timer=cuda_ms):
@@ -3139,9 +3118,12 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
             entry[n] = dict(ms=tm["wrapper"], kernel_only_ms=tm["alone"], plain_ms=tm["plain"],
                             bound_ms=bound, bound_by=by, max_abs_err=max(errs),
                             parent_kernel_ms=tm["parent"],
-                            shard_kernel_ms=[round(x["alone"], 4) for x in times])
+                            shard_kernel_ms=[round(x["alone"], 4) for x in times],
+                            parent_shard_kernel_ms=None if tm["parent"] is None else
+                            [round(x["parent"], 4) for x in times])
             par = ("" if tm["parent"] is None else
-                   f"the parent's {tm['parent']:.4f} ms (in turns), ")
+                   f"the parent's {tm['parent']:.4f} ms (in turns; all shards "
+                   f"{entry[n]['parent_shard_kernel_ms']}), ")
             print(f"[kernels] K2 shard fused_adam_multi_shard{ak._SUFFIX[variant]} ({n} shards "
                   f"of {b} rows x 3 levels, entries per shard {[x['m_sh'] for x in times]} "
                   f"incl. ~10% pads): each shard vs plain max_abs_err {max(errs):.3e} (phase 2's "
@@ -3164,6 +3146,9 @@ def phase_shard_kernels(C=1 << 22, corners=(3_180_000, 3_070_000, 2_400_000), M=
             bound_ms=e2["bound_ms"], bound_by=e2["bound_by"], library_ms=None,
             parent_kernel_ms=e2["parent_kernel_ms"], shards=shard_counts[0],
             ms_4_shards=e4["ms"], kernel_only_ms_4_shards=e4["kernel_only_ms"],
+            plain_ms_4_shards=e4["plain_ms"],
+            shard_kernel_ms_4_shards=e4["shard_kernel_ms"],
+            parent_shard_kernel_ms_4_shards=e4["parent_shard_kernel_ms"],
             parent_kernel_ms_4_shards=e4["parent_kernel_ms"], bound_ms_4_shards=e4["bound_ms"]))
         del whole, t0
         torch.cuda.empty_cache()
@@ -4578,24 +4563,16 @@ def phase_surface_kernel(where, sizes, n_used, M, one_row=None):
     t_call, t_pre = cuda_ms(call), cuda_ms(lambda: call(pre))
     parent, t_parent = _parent_lib(), None
     if parent is not None:
-        pres = [ak.window_prep(ak._prep_launch([r.reshape(1, -1)], [C], [nu], pre.tb, chunk=0),
-                               0) for r, C, nu in zip(rows_l, sizes, n_used)]
-
-        def old():
-            for lv in range(L):
-                _launch_parent(parent, "f32", [kern[0][lv]], [kern[1][lv]], [kern[2][lv]],
-                               [g_l[lv]], [0], pres[lv], [n_used[lv]], [0], [lrs[lv]], 0.9,
-                               0.99, bc1, bc2, 1e-15)
-
-        t_parent, t_alone = _in_turns(old, alone, graph_ms)
-        del pres
+        t_parent, t_alone = _in_turns(
+            lambda: _launch_parent(parent, "f32", *kern, g_l, ent_off, pre, n_used, offs, lrs,
+                                   0.9, 0.99, bc1, bc2, 1e-15), alone, graph_ms)
     else:
         t_alone = graph_ms(alone)
     t_plain = cuda_ms(plain, iters=5)
     t_lib = _library_ms(tabs0[0], rows_l, g_l, n_used, lrs)
     bound, by = _bound_ms(n_used, L * M, D)
     par = ("" if t_parent is None else
-           f"the parent's {L} per-level launches alone {t_parent:.4f} ms (in turns, "
+           f"the parent kernel alone on the same prep {t_parent:.4f} ms (in turns, "
            f"{t_parent / t_alone:.2f}x), ")
     hot = "" if one_row is None else f", level {one_row}'s entries on one row"
     print(f"[kernels] K1 fused_adam_levels at {L} levels ({where}: {list(sizes)} rows, used "

@@ -92,17 +92,12 @@ def probe_update_kernel(variants) -> None:
               "bf16p": (torch.bfloat16, torch.bfloat16)}
     tables = {v: [[t.to(dt) for t in tabs0[k]] for k, dt in ((0, pd), (1, md), (2, md))]
               for v, (pd, md) in dtypes.items()}
-    load = cuda_build.load
 
     def timed(variant, lib_dir):
-        if lib_dir is not None:  # _launch loads its library through this name
-            cuda_build.load = lambda name: load(name, lib_dir, lib_dir)
-        try:
-            return cs.cuda_ms(lambda: ak._launch(
-                variant, *tables[variant], g_l, ent_off, pre, n_used, offs, lrs, 0.9, 0.99,
-                1 - 0.9 ** 5, 1 - 0.99 ** 5, 1e-15, variant != "f32", 7))
-        finally:
-            cuda_build.load = load
+        lib = None if lib_dir is None else cuda_build.load("fused_adam", lib_dir, lib_dir)
+        return cs.cuda_ms(lambda: ak._launch(
+            variant, *tables[variant], g_l, ent_off, pre, n_used, offs, lrs, 0.9, 0.99,
+            1 - 0.9 ** 5, 1 - 0.99 ** 5, 1e-15, variant != "f32", 7, lib=lib))
 
     print(f"{torch.cuda.get_device_name(0)}; K2 kernel alone, 3 levels, used rows {n_used}")
     for name in variants:

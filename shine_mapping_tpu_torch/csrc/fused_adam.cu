@@ -107,12 +107,28 @@
 //   tensors (one pointer per level): no concatenated, gathered copy.
 // - Stochastic rounding: the thread that owns a group makes that group's
 //   one Philox call itself, so no noise is staged in shared memory.
-// - One CTA per tile (~36k at the main path's sizes); a persistent grid or
-//   cp.async / TMA staging is later work.  The bf16-p variant moves the
-//   fewest bytes per element but does the most work per element (a Philox
-//   call per group, ten rounds of 32-bit multiplies, besides the correctly
-//   rounded quotients and root of every variant): the likely reason it
-//   stays furthest from its bytes bound (not yet measured).
+// - One CTA a tile (~36k at the main path's sizes, 12,288 over a 4-shard
+//   block), 8 KB of f32 sums each: 9 / 8 / 6 CTAs an SM, 56 / 64 / 78
+//   registers (bf16 p / bf16 moments / f32; MinCtas).  What held each
+//   variant back (scripts/probe_k2_shards.py, PERF.md §6): f32 streams at
+//   83-88 % of its bytes bound with the arithmetic under the stream.  The
+//   bf16 variants move fewer bytes an element, and their arithmetic alone
+//   (the correctly rounded quotients and root, bf16 p's Philox) takes about
+//   as long as their bytes (bf16 p at a 4-shard block: 0.100 ms against
+//   0.105 streaming alone), so the two overlap only as far as the SM has
+//   warps to issue from: one more CTA an SM took bf16 p from 65 % to 72 %
+//   of its bound and bf16 moments from 79 % to 86 %.  A persistent grid
+//   keeping the next tiles' tables in flight (a cp.async ring, TMA bulk
+//   copies, or registers; scripts/probes/fused_adam_ring.cu) lost in every
+//   variant and shape (its best form, TMA bulk copies at bf16 p, by 5-9 %):
+//   its staging took registers and shared memory, an SM then held 2-5 CTAs,
+//   and the arithmetic slowed more than the overlap gained.
+// - Idle groups (finish_group): a group whose moments and summed gradient
+//   are +0 (the headroom past a used head, most of a row shard's last
+//   blocks) skips the quotients, the root and Philox, whose zero operands
+//   took __fdiv_rn's and __fsqrt_rn's slow paths: a 4-shard block that was
+//   mostly headroom took 0.187 ms against 0.142 for a full one (bf16 p,
+//   before this path; 0.108 with it).  The same bits as the full step.
 // - Entry-balanced grid (small, hot tables).  Where a level's used head is
 //   a few tiles and each takes thousands of entries (4 levels of 1,024 -
 //   286,720 used rows, 32,768 entries each: the RGB-D configs), one CTA a
@@ -139,6 +155,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <type_traits>
 
 #define MAX_LEVELS 16
@@ -158,6 +175,7 @@ struct Levels {
   long long grp_base[MAX_LEVELS]; // Philox group of the table's first element
   int tile_lo[MAX_LEVELS + 1];    // first tile of level l; [L] = total tiles
   float lr[MAX_LEVELS];           // learning rate of level l
+  float idle_q[MAX_LEVELS];       // level l's quotient where m, v and g are +0
   int n_levels;
 };
 
@@ -193,8 +211,10 @@ __device__ __forceinline__ unsigned short bf16_bits(float x) {
 __device__ __forceinline__ void store8(__nv_bfloat16* a, const float (&x)[8]) {
   unsigned q[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    q[j] = (unsigned)bf16_bits(x[2 * j]) | ((unsigned)bf16_bits(x[2 * j + 1]) << 16);
+  for (int j = 0; j < 4; ++j) {  // one conversion of two values, each to nearest even
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+    q[j] = *reinterpret_cast<const unsigned*>(&h);
+  }
   *reinterpret_cast<uint4*>(a) = make_uint4(q[0], q[1], q[2], q[3]);
 }
 __device__ __forceinline__ void store1(float* a, int i, float x) { a[i] = x; }
@@ -276,6 +296,16 @@ __device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float (&x)[
   }
 }
 
+// the bits of 8 loaded elements ORed: 0 when every one is +0
+__device__ __forceinline__ unsigned bits_or(const Raw8<float>& r) {
+  return __float_as_uint(r.a.x) | __float_as_uint(r.a.y) | __float_as_uint(r.a.z) |
+         __float_as_uint(r.a.w) | __float_as_uint(r.b.x) | __float_as_uint(r.b.y) |
+         __float_as_uint(r.b.z) | __float_as_uint(r.b.w);
+}
+__device__ __forceinline__ unsigned bits_or(const Raw8<__nv_bfloat16>& r) {
+  return r.a.x | r.a.y | r.a.z | r.a.w;
+}
+
 template <typename P, typename Mt>
 struct Group {
   Raw8<P> p;
@@ -291,27 +321,46 @@ __device__ __forceinline__ void load_group(Group<P, Mt>& r, const P* p, const Mt
   load_raw(v + e0, n, r.v);
 }
 
+// An idle group: m, v and the summed gradient all +0 (rows no entry reached
+// and whose moments are zero: the headroom past a used head, most of a row
+// shard's blocks).  Its step keeps m = v = +0 and takes p - idle_q, where
+// idle_q = lr (0 / bc1) / (sqrt(0 / bc2) + eps) is +0 for every sane lr and
+// eps (launch computes it on the host with the same IEEE single operations),
+// so it skips the quotients and the root, whose zero operands take
+// __fdiv_rn's and __fsqrt_rn's slow paths, and Philox: idle_q is a zero or
+// NaN, so p - idle_q is a bf16 value or not finite, which the noise cannot
+// move.  The same bits as the full step.
 template <typename P, typename Mt>
 __device__ __forceinline__ void finish_group(const Group<P, Mt>& r, P* p, Mt* m, Mt* v,
                                              int e0, int n, const float* gt, float lr,
-                                             const Hyper& h, long long grp, int level,
-                                             unsigned seed) {
+                                             float idle_q, const Hyper& h, long long grp,
+                                             int level, unsigned seed) {
   float pf[8], mf[8], vf[8], g[8];
   unpack(r.p, pf);
   unpack(r.m, mf);
   unpack(r.v, vf);
+  unsigned gbits = 0;
   if (gt != nullptr) {
     load8(gt + e0, g);  // shared memory; the tile is a whole number of groups
+#pragma unroll
+    for (int j = 0; j < 8; ++j) gbits |= __float_as_uint(g[j]);
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) g[j] = 0.f;
   }
+  const bool idle = (gbits | bits_or(r.m) | bits_or(r.v)) == 0u;
+  if (idle) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) adam1(pf[j], mf[j], vf[j], g[j], lr, h);
+    for (int j = 0; j < 8; ++j) pf[j] = __fsub_rn(pf[j], idle_q);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) adam1(pf[j], mf[j], vf[j], g[j], lr, h);
+  }
   if constexpr (std::is_same<P, __nv_bfloat16>::value) {
-    const uint4 w = philox4x32_10(
-        make_uint4((unsigned)grp, (unsigned)(grp >> 32), (unsigned)level, 0u),
-        make_uint2(seed, 0x53524E44u));
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (!idle)
+      w = philox4x32_10(make_uint4((unsigned)grp, (unsigned)(grp >> 32), (unsigned)level, 0u),
+                        make_uint2(seed, 0x53524E44u));
     const unsigned q[4] = {w.x, w.y, w.z, w.w};
     unsigned short b[8];
 #pragma unroll
@@ -356,19 +405,21 @@ __device__ __forceinline__ void sum_atomic(float* gtile, const int* __restrict__
   }
 }
 
-// CTAs an SM must hold at once (the registers a thread may take follow):
-// each variant keeps the occupancy of the kernel before the work list
-// (bf16 p 8 CTAs, 60 registers; bf16 moments 7, 69; f32 6, 77).  Measured
-// on the card: a first form of the work list's path took the bf16 variants
-// to 74 registers and 6 CTAs, 10-14 % slower, and f32 to 93 and 5 CTAs,
-// 5-8 % slower on row shards (whose untouched tiles only stream); with the
-// split path's own sweep (below) and these bounds each variant is within
-// 1.5 % of the kernel before it (a bound of 1 let f32 take 135, 30 %
-// slower).
+// CTAs an SM must hold at once (the registers a thread may take follow),
+// set by scripts/probe_k2_shards.py on the card (PERF.md §6): bf16 p 9
+// CTAs, 56 registers (20 bytes spilled), 10-12.5 % faster than at 8 (60
+// registers) at K2's unsharded and row-shard launches, where its
+// arithmetic needs the warps; 10 (48 registers, 84 bytes spilled) was 1-2
+// % behind 9, 11-12 (40, 288 bytes) 10-12 % behind 8.  bf16 moments 8
+// CTAs, 64 registers, 7-8 % faster than at 7 (69), 9 no faster.  f32 6
+// CTAs, 78 registers: it streams at 85-88 % of its bound, and 8 was 17-20
+// % slower.  (A bound of 1 let f32 take 135 registers, 30 % slower; and
+// the work list's path keeps its own sweep so that it does not raise the
+// common path's registers.)
 template <typename P, typename Mt>
 struct MinCtas {
-  static constexpr int value = std::is_same<P, __nv_bfloat16>::value ? 8
-                               : std::is_same<Mt, __nv_bfloat16>::value ? 7 : 6;
+  static constexpr int value = std::is_same<P, __nv_bfloat16>::value ? 9
+                               : std::is_same<Mt, __nv_bfloat16>::value ? 8 : 6;
 };
 
 // THREADS threads a CTA; each prefetches GPT groups of its tile (the whole
@@ -450,8 +501,8 @@ __global__ void __launch_bounds__(THREADS, MinCtas<P, Mt>::value) fused_adam_ker
     for (int q = threadIdx.x; q < n_groups; q += THREADS) {
       Group<P, Mt> x;
       load_group(x, p, m, v, q << 3, min(8, nel - (q << 3)));
-      finish_group(x, p, m, v, q << 3, min(8, nel - (q << 3)), gtile, lr, h, grp0 + q, l,
-                   seed);
+      finish_group(x, p, m, v, q << 3, min(8, nel - (q << 3)), gtile, lr, lv.idle_q[l], h,
+                   grp0 + q, l, seed);
     }
     return;
   }
@@ -489,13 +540,15 @@ __global__ void __launch_bounds__(THREADS, MinCtas<P, Mt>::value) fused_adam_ker
   for (int i = 0; i < GPT; ++i) {
     const int q = threadIdx.x + i * THREADS;
     if (q < n_groups)
-      finish_group(r[i], p, m, v, q << 3, min(8, nel - (q << 3)), gt, lr, h, grp0 + q, l, seed);
+      finish_group(r[i], p, m, v, q << 3, min(8, nel - (q << 3)), gt, lr, lv.idle_q[l], h,
+                   grp0 + q, l, seed);
   }
   // tiles of more than GPT * THREADS groups (D > 256, where tb is 8 rows)
   for (int q = threadIdx.x + GPT * THREADS; q < n_groups; q += THREADS) {
     Group<P, Mt> x;
     load_group(x, p, m, v, q << 3, min(8, nel - (q << 3)));
-    finish_group(x, p, m, v, q << 3, min(8, nel - (q << 3)), gt, lr, h, grp0 + q, l, seed);
+    finish_group(x, p, m, v, q << 3, min(8, nel - (q << 3)), gt, lr, lv.idle_q[l], h, grp0 + q,
+                 l, seed);
   }
 }
 
@@ -558,6 +611,8 @@ static int launch(void* const* p, void* const* m, void* const* v, const void* co
     lv.n_used[l] = n_used[l];
     lv.tile_lo[l] = (int)tiles;
     lv.lr[l] = lr[l];
+    // an idle element's quotient (finish_group), IEEE single as the kernel's
+    lv.idle_q[l] = (lr[l] * (0.f / bc1)) / (sqrtf(0.f / bc2) + eps);
     tiles += (n_used[l] + tb - 1) / tb;
   }
   const long long grid = tiles + (chunk > 0 ? E_max : 0);

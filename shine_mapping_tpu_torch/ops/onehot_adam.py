@@ -310,21 +310,33 @@ def c_entry(lib: ctypes.CDLL) -> ctypes._CFuncPtr:
     return fn
 
 
+_entry_fn = None  # csrc/onehot_adam.cu's onehot_adam, resolved at the first launch
+
+
 def _launch(mode, pc_kind, p, m, v, po, mo, vo, pc, ids, g0, g1, offs, scal, lr, bc1,
             bc2, T, tb, w, n_ids, b1, b2, eps, fn=None):
     """One launch of csrc/onehot_adam.cu (``fn``: another build's
-    :func:`c_entry`), not counted."""
+    :func:`c_entry`) on the current stream of ``p``'s device, not
+    counted."""
+    global _entry_fn
     if fn is None:
-        fn = c_entry(cuda_build.load("onehot_adam"))
+        if _entry_fn is None:
+            _entry_fn = c_entry(cuda_build.load("onehot_adam"))
+        fn = _entry_fn
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(mode, pc_kind, ptr(p), ptr(m), ptr(v), ptr(po), ptr(mo), ptr(vo), ptr(pc),
-                 ptr(ids), ptr(g0), ptr(g1), ptr(offs), ptr(scal), float(lr), float(bc1),
-                 float(bc2), b1, b2, 1.0 - b1, 1.0 - b2, eps, 0.0, T, tb, w, n_ids, stream)
+    dev = p.get_device()
+    args = (mode, pc_kind, ptr(p), ptr(m), ptr(v), ptr(po), ptr(mo), ptr(vo), ptr(pc),
+            ptr(ids), ptr(g0), ptr(g1), ptr(offs), ptr(scal), float(lr), float(bc1),
+            float(bc2), b1, b2, 1.0 - b1, 1.0 - b2, eps, 0.0, T, tb, w, n_ids,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"onehot_adam kernel launch failed: CUDA error {err}")
 

@@ -62,7 +62,11 @@ def sweep(p: torch.Tensor) -> torch.Tensor:
     kernel = _load_kernel()
     out = torch.empty_like(p)
     n = p.numel()
-    with torch.cuda.device(p.device):
-        kernel[(max(1, -(-n // BLOCK)),)](p, out, n, BLOCK=BLOCK, num_warps=NUM_WARPS)
+    grid = (max(1, -(-n // BLOCK)),)
+    if p.get_device() == torch.cuda.current_device():  # Triton launches on the current device
+        kernel[grid](p, out, n, BLOCK=BLOCK, num_warps=NUM_WARPS)
+    else:
+        with torch.cuda.device(p.device):
+            kernel[grid](p, out, n, BLOCK=BLOCK, num_warps=NUM_WARPS)
     LAUNCHES["sweep"] += 1
     return out

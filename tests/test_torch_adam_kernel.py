@@ -698,3 +698,46 @@ def test_plain_step_rounds_each_operation_once():
     p_new = p[:nu] - (f(LR) * (m_new / f(BC1))) / (np.sqrt(v_new / f(BC2)) + f(1e-15))
     for a, b in zip(tabs, (p_new, m_new, v_new)):
         np.testing.assert_array_equal(a.numpy()[:nu], b)
+
+
+def _probe_module():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "probe_k2_shards.py")
+    spec = importlib.util.spec_from_file_location("probe_k2_shards", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("design", sorted(_probe_module().DESIGNS))
+def test_k2_shard_probe_alters_the_kernel_source(design):
+    """scripts/probe_k2_shards.py builds each design from
+    csrc/fused_adam.cu (this commit's kernel, which also stands in for the
+    parent commit's here) or scripts/probes/fused_adam_ring.cu by replacing
+    functions and lines it names: every anchor is still in its source (so
+    the probe runs on this commit), each alteration changes the text, and
+    the shape lines it alters (the ring's stages, grid, CTAs an SM and
+    shared memory; the kernel's launch bounds) are the ones the sources
+    launch with."""
+    import os
+
+    probe = _probe_module()
+    src = os.path.join(os.path.dirname(tak.__file__), os.pardir, "csrc", "fused_adam.cu")
+    with open(src) as f:
+        kernel = f.read()
+    with open(probe.RING_SOURCE) as f:
+        ring = f.read()
+    out = probe.design_source(design, {"kernel": kernel, "parent": kernel, "ring": ring})
+    base = {"kernel": kernel, "parent": kernel, "ring": ring}[probe.DESIGNS[design][0]]
+    assert out is not None
+    # the launch-bounds designs may ask what the source already asks
+    assert (out == base) == (probe.DESIGNS[design][1] is None) or design.startswith(
+        ("kernel_p", "kernel_m"))
+    for line in (probe.STAGES_LINE, probe.GRID_LINE, probe.CTAS_LINE, probe.SMEM_LINE):
+        assert ring.count(line) == 1
+    assert len(probe.MIN_CTAS.findall(kernel)) == 1 and kernel.count(probe.IDLE_LINE) == 1
+    if design.endswith("_arith"):
+        assert "0x7FC00001u" in out

@@ -914,15 +914,16 @@ def _shard_case(rng, device, variant, n=2, C=1 << 13, L=3, M=4000):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["f32", "bf16m", "bf16p"])
-def test_shard_kernel_matches_plain_and_unsharded_k2(cuda_device, variant):
-    """K2's row-sharded caller on the card: each of 2 shards against its
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_kernel_matches_plain_and_unsharded_k2(cuda_device, variant, n):
+    """K2's row-sharded caller on the card: each of n shards against its
     plain version on CPU copies (f32 rtol 1e-5 / atol 1e-6; every table
     bit-equal on rows with at most one entry, bf16 p's rounding included),
-    and the 2 shards' blocks concatenated against one unsharded K2 launch
+    and the n shards' blocks concatenated against one unsharded K2 launch
     on the same entries (the same tolerance; bf16 bit-equal on rows with at
     most one entry)."""
     rng = np.random.default_rng(3)
-    n, C, L = 2, 1 << 13, 3
+    C, L = 1 << 13, 3
     whole, rows_l, g_l = _shard_case(rng, cuda_device, variant, n, C, L)
     kw = dict(grads_bf16=variant != "f32", sr_seed=11 if variant == "bf16p" else None)
     k2 = [[t.to(cuda_device) for t in lv] for lv in whole]
@@ -967,6 +968,125 @@ def test_shard_kernel_matches_plain_and_unsharded_k2(cuda_device, variant):
             else:
                 assert torch.equal(got[s_], want[s_])
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _held(card, cpu, single, every_row=False):
+    """Card tables against the plain version's on the CPU: bit-equal on the
+    rows ``single`` (per level; bf16 p's noise included), f32 tables within
+    rtol 1e-5 / atol 1e-6 elsewhere; ``every_row``: bit-equal everywhere."""
+    for t in range(3):
+        for a, c, s_ in zip(card[t], cpu[t], single):
+            a = a.cpu()
+            bits = torch.int16 if a.itemsize == 2 else torch.int32
+            if every_row:
+                assert torch.equal(a.view(bits), c.view(bits)), f"table {t} parted"
+                continue
+            diff = int((a[s_].view(bits) != c[s_].view(bits)).sum())
+            assert diff == 0, f"table {t}: {diff} elements of single-entry rows differ"
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+
+
+def _single(rows_l, sizes, trash=True):
+    """Per level the rows with at most one entry (``trash``: the last row is
+    the trashbin, whose entries are left out)."""
+    return [torch.bincount(r[(r >= 0) & (r < C - int(trash))].long(), minlength=C)[:C] <= 1
+            for r, C in zip(rows_l, sizes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "bf16m", "bf16p"])
+@pytest.mark.parametrize("case", ["many_tiles", "tail_level", "head_elsewhere", "hot_tile",
+                                  "det_sorted"])
+def test_update_kernel_cases_match_plain(cuda_device, variant, case):
+    """The update kernel (csrc/fused_adam.cu) against the plain version on
+    CPU copies, each case with more tiles than the card holds CTAs at once
+    (over 8 x 132), so the grid runs in several waves: ``many_tiles`` a row
+    shard (2 of 2; f32 within rtol 1e-5 / atol 1e-6, single-entry rows
+    bit-equal, bf16 p's noise keyed by the whole table); ``tail_level`` K2
+    at D 3 with used heads whose element counts are not multiples of 8
+    (tail groups, rows past the heads untouched); ``head_elsewhere`` the
+    last of 4 shards, where level 2's used head lies in shard 0 (its block:
+    zero moments, no entries; the idle groups' path, with -0.0 moments and
+    -0.0 parameters among them, which take the full step); ``hot_tile`` K2
+    with one level's entries all on one row (the work list's extra items);
+    ``det_sorted`` the deterministic sum on the sorted prep (every row
+    bit-equal to the CPU's).  Rows with no entry count as single-entry
+    rows: bit-equal, idle or not."""
+    rng = np.random.default_rng(17)
+    pdt = torch.bfloat16 if variant == "bf16p" else torch.float32
+    mdt = torch.float32 if variant == "f32" else torch.bfloat16
+    kw = dict(grads_bf16=variant != "f32", sr_seed=13 if variant == "bf16p" else None)
+    scales = [1.0, 0.5, 0.25]
+
+    def tables(sizes, n_used, M, dim=D):
+        tabs, rows_l, g_l = [[], [], []], [], []
+        for C, nu in zip(sizes, n_used):
+            m = rng.normal(0, 0.01, (C, dim)).astype(np.float32)
+            v = np.abs(rng.normal(0, 1e-4, (C, dim))).astype(np.float32)
+            m[nu:] = 0.0
+            v[nu:] = 0.0
+            for k, (a, dt) in enumerate(((rng.normal(0, 0.1, (C, dim)), pdt), (m, mdt),
+                                         (v, mdt))):
+                tabs[k].append(torch.from_numpy(a.astype(np.float32)).to(dt))
+            rows = rng.integers(0, max(nu, 1), M).astype(np.int32)
+            rows[M // 2: M // 2 + M // 8] = rows[: M // 8]
+            g = rng.normal(0, 1e-3, (M, dim)).astype(np.float32)
+            rows_l.append(torch.from_numpy(rows))
+            g_l.append(torch.from_numpy(g))
+        return tabs, rows_l, g_l
+
+    def on_card(ts):
+        return [[t.to(cuda_device) for t in lv] for lv in ts]
+
+    if case in ("many_tiles", "head_elsewhere"):
+        n, C = (2, 1 << 18) if case == "many_tiles" else (4, 1 << 19)
+        k = n - 1
+        b = C // n
+        n_used = [C, C, b // 2] if case == "head_elsewhere" else [C] * 3
+        tabs, rows_l, g_l = tables([C] * 3, n_used, 20000)
+        if case == "head_elsewhere":  # signed zeros in the headroom: not idle
+            for t in range(3):
+                tabs[t][2][-1000:-500:3] = -0.0
+        rl, gl = [], []
+        for l in range(3):
+            r = rows_l[l].long()
+            sel = (r // b == k) & (r != C - 1)  # misses do not route
+            rl.append(r[sel] - k * b + l * b)
+            gl.append(g_l[l][sel])
+        rows, g = torch.cat(rl).to(torch.int32), torch.cat(gl)
+        loc = [[t[k * b:(k + 1) * b].clone() for t in lv] for lv in tabs]
+        assert 3 * b // ak.tile_rows(D) > 8 * 132
+        card = on_card(loc)
+        base = ak.shard_row_base([(C, D)] * 3, n, k)
+        ak.fused_adam_shard(*card, rows.to(cuda_device), g.to(cuda_device), LR, BC1, BC2,
+                            scales, base, **kw)
+        ak.fused_adam_shard_plain(*loc, rows, g, LR, BC1, BC2, scales, base, **kw)
+        _held(card, loc, _single([rl[l] - l * b for l in range(3)], [b] * 3, trash=False))
+        if case == "head_elsewhere":  # no used row of level 2 in this shard
+            for t in range(3):
+                bits = torch.int16 if tabs[t][2].itemsize == 2 else torch.int32
+                assert torch.equal(card[t][2].cpu().view(bits)[:-1000],
+                                   tabs[t][2][k * b:-1000].view(bits))
+        return
+    if case == "tail_level":
+        dim, sizes, n_used = 3, [600_032, 400_008, 200_000], [600_001, 400_003, 199_999]
+    else:
+        dim, sizes, n_used = D, [1 << 18, 1 << 18, 4096], [200_000, 150_000, 1024]
+    tabs, rows_l, g_l = tables(sizes, n_used, 30000, dim)
+    if case == "hot_tile":
+        rows_l[2][:20000] = 5  # one row takes 20,000 entries: 40 work items
+    tb = ak.tile_rows(dim)
+    assert sum(-(-nu // tb) for nu in n_used) > 8 * 132
+    card = on_card(tabs)
+    ak.fused_adam_multi(*card, [r.to(cuda_device) for r in rows_l],
+                        [g.to(cuda_device) for g in g_l], LR, BC1, BC2, scales, n_used,
+                        deterministic=case == "det_sorted", **kw)
+    if case == "hot_tile":
+        pre = ak.entry_prep([r.to(cuda_device) for r in rows_l], sizes, n_used, dim)
+        assert int(pre.n_split) > 0
+    ak.fused_adam_multi(*tabs, rows_l, g_l, LR, BC1, BC2, scales, n_used, **kw)
+    _held(card, tabs, _single(rows_l, sizes), every_row=case == "det_sorted")
 
 
 @pytest.mark.cuda
