@@ -1,0 +1,271 @@
+#!/usr/bin/env python3
+"""A cell's time by the program's stage spans (``utils.profiling.span``).
+
+    python3 benchmark/stages.py --workload <cell> --seed <n> [--seconds 20]
+                                [--steps 20] [--rounds 4]
+
+One run on the card, as ``run.py``'s set-up and window, with tracing on
+where it is read and off where the window is timed:
+
+1. set-up with tracing on: the data phase's ``data.*`` spans summed by name
+   (``setup_spans``, seconds; ``data.prep`` over every frame and worker
+   thread) beside the data phase's host clock, then the data phase again
+   on the main thread alone (``setup_spans_sequential``);
+2. the warm chunk and a window of whole chunks for ``--seconds``, tracing
+   off (``window_ms_per_step``);
+3. ``--steps`` steps in one call with tracing on and no profiler, ended by a
+   synchronise: each stage's summed span time a step (``stages``) and the
+   stretch's own ms a step, the on-cost against the window;
+4. ``--rounds`` pairs of whole chunks with tracing off and on, in turns
+   (``ab``): the on-cost again, on chunks the window's size;
+5. ``--steps`` steps in one ``train_chunk`` call under ``torch.profiler``
+   with tracing on (:func:`by_stage`): each launch call given to the
+   ``step.*`` interval that holds it, on any thread (autograd runs the
+   backward's launches on its own thread), ``outside`` the rest; each idle
+   gap before a device operation given to the stage of the operation's
+   launching ``cpu_op`` (by ``External id``; the profiler roughly doubles
+   the host's time, so these gaps are shares, not times); then one chunk
+   with tracing off (``after_profile_ms_per_step``).
+
+Prints one JSON object as its last line.  ``run.py`` runs none of this.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import os
+import shutil
+import statistics
+import sys
+import tempfile
+import time
+
+if __name__ == "__main__":
+    # as run.py, before numpy and torch load: one process on one CPU with
+    # one intra-op thread
+    os.environ["OMP_NUM_THREADS"] = "1"
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+for _p in (HERE, os.path.dirname(HERE)):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
+
+import harness  # noqa: E402
+
+STAGE_PREFIX = "step."
+OUTSIDE = "outside"
+
+
+def summed(spans, prefix: str) -> dict:
+    """Seconds by span name over the spans whose name starts with ``prefix``."""
+    out = {}
+    for s in spans:
+        if s.name.startswith(prefix):
+            out[s.name] = out.get(s.name, 0.0) + (s.t1_ns - s.t0_ns) / 1e9
+    return out
+
+
+def stage_of(events: list):
+    """A function from a trace time to the ``step.*`` annotation that holds
+    it (in [ts, ts + dur], on any thread), or ``outside``.  The stages of
+    a step run one after the other on the calling thread: none overlap."""
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
+                for e in events
+                if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e.get("name", "").startswith(STAGE_PREFIX))
+    starts = [a for a, _, _ in iv]
+
+    def at(ts: float) -> str:
+        i = bisect.bisect_right(starts, ts) - 1
+        return iv[i][2] if i >= 0 and ts <= iv[i][1] else OUTSIDE
+
+    return at
+
+
+def by_stage(events: list) -> dict:
+    """``launches`` (``harness.read_trace``'s count), ``launches_by_stage``
+    (which sum to it) and ``idle_by_stage`` (seconds) of a Chrome trace."""
+    stage_at = stage_of(events)
+    launches, by_launch, dev, cpu_ts = 0, {}, [], {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+                        (e.get("args") or {}).get("External id")))
+        elif cat in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", ""):
+            launches += 1
+            st = stage_at(float(e["ts"]))
+            by_launch[st] = by_launch.get(st, 0) + 1
+        elif cat == "cpu_op":
+            ext = (e.get("args") or {}).get("External id")
+            if ext is not None:
+                cpu_ts.setdefault(ext, float(e["ts"]))
+    dev.sort()
+    idle, end = {}, None
+    for t0, t1, ext in dev:
+        if end is not None and t0 > end:
+            st = stage_at(cpu_ts[ext]) if ext in cpu_ts else OUTSIDE
+            idle[st] = idle.get(st, 0.0) + (t0 - end) / 1e6
+        end = t1 if end is None else max(end, t1)
+    return {"launches": launches, "launches_by_stage": by_launch, "idle_by_stage": idle}
+
+
+def profiled(prog, steps: int, tmp: str):
+    """``steps`` steps in one call under ``torch.profiler`` with tracing on:
+    (the Chrome trace's events, the stretch's host seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shine_mapping_tpu_torch.utils import profiling
+
+    acts = [ProfilerActivity.CPU]
+    if prog.device.startswith("cuda"):
+        acts.append(ProfilerActivity.CUDA)
+    harness._sync(prog.device)
+    was = profiling.tracing(True)
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            float(prog.chunk(steps)["mean"]["total_loss"])
+            harness._sync(prog.device)
+            window_s = time.perf_counter() - t0
+    finally:
+        profiling.tracing(was)
+    path = os.path.join(tmp, "stages_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return events, window_s
+
+
+def timed_chunk(prog, steps: int, on: bool) -> float:
+    """Host seconds of one ``train_chunk`` call, ended by a synchronise,
+    with tracing ``on`` or off (no profiler)."""
+    from shine_mapping_tpu_torch.utils import profiling
+
+    was = profiling.tracing(on)
+    try:
+        t0 = time.perf_counter()
+        float(prog.chunk(steps)["mean"]["total_loss"])
+        harness._sync(prog.device)
+        return time.perf_counter() - t0
+    finally:
+        profiling.tracing(was)
+
+
+def sequential_data_phase(cfg) -> tuple:
+    """The data phase again on the main thread alone (``process_frame``),
+    tracing on: (its ``data.*`` spans summed, its host seconds).  On one
+    core the pipelined phase's spans hold each other's time; these do not."""
+    from shine_mapping_tpu_torch.cli.common import build_grid
+    from shine_mapping_tpu_torch.data.dataset import LiDARDataset
+    from shine_mapping_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    was = profiling.tracing(True)
+    try:
+        ds = LiDARDataset(cfg, build_grid(cfg))
+        t0 = time.perf_counter()
+        for f in ds.frame_ids():
+            ds.process_frame(f)
+        dt = time.perf_counter() - t0
+    finally:
+        profiling.tracing(was)
+    sp = summed(profiling.spans(), "data.")
+    profiling.clear_spans()
+    return sp, dt
+
+
+def run(workload: str, seed: int, seconds: float = 20.0, steps: int = 20, rounds: int = 4,
+        device: str = "cuda", overrides: dict | None = None) -> dict:
+    from shine_mapping_tpu_torch.utils import profiling
+
+    cell = harness.Cell(workload, overrides)
+    tmp = tempfile.mkdtemp(prefix="shine-stages-")
+    out = {"workload": workload, "seed": seed}
+    try:
+        profiling.clear_spans()
+        was = profiling.tracing(True)
+        try:
+            prog = harness.Program(cell, seed, device, tmp)
+        finally:
+            profiling.tracing(was)
+        sp = profiling.spans()
+        out["setup_spans"] = summed(sp, "data.")
+        out["frames"] = sum(s.name == "data.prep" for s in sp)
+        out["timers"] = dict(prog.timers)
+        out["setup_spans_sequential"], out["data_s_sequential"] = sequential_data_phase(prog.cfg)
+
+        chunk = int(prog.cfg.scan_chunk)
+        for _ in range(3):  # the checked steps' calls
+            prog.chunk(1)
+        timed_chunk(prog, chunk, False)  # warm chunk
+        t0, n = time.perf_counter(), 0
+        while True:
+            float(prog.chunk(chunk)["mean"]["total_loss"])
+            n += chunk
+            if time.perf_counter() - t0 >= seconds:
+                break
+        harness._sync(device)
+        out["window_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / n
+
+        profiling.clear_spans()
+        dt = timed_chunk(prog, steps, True)
+        sp = profiling.spans()
+        out["stages"] = {k: 1e3 * v / steps for k, v in summed(sp, "step").items()}
+        out["stages"].update({k: 1e3 * v for k, v in summed(sp, "chunk").items()})
+        out["spans_ms_per_step"] = 1e3 * dt / steps
+
+        ab = {"off": [], "on": []}
+        for r in range(rounds):
+            for on in ((False, True) if r % 2 == 0 else (True, False)):
+                ab["on" if on else "off"].append(1e3 * timed_chunk(prog, chunk, on) / chunk)
+        profiling.clear_spans()
+        out["ab_ms_per_step"] = ab
+        if ab["off"]:
+            out["ab_median_ms"] = {k: statistics.median(v) for k, v in ab.items()}
+
+        # last: on the card a profiled stretch leaves the host's later steps slower
+        events, tr_s = profiled(prog, steps, tmp)
+        profiling.clear_spans()
+        rt = harness.read_trace(events, steps, tr_s)
+        st = by_stage(events)
+        assert st["launches"] == rt["launches"] == sum(st["launches_by_stage"].values())
+        out["launches_per_step"] = st["launches"] / steps
+        out["launches_by_stage"] = {k: v / steps for k, v in st["launches_by_stage"].items()}
+        out["idle_by_stage_ms"] = {k: 1e3 * v / steps for k, v in st["idle_by_stage"].items()}
+        out["profiled_ms_per_step"] = 1e3 * tr_s / steps
+        out["busy_ms_per_step"] = 1e3 * rt["busy_s"] / steps
+        out["after_profile_ms_per_step"] = 1e3 * timed_chunk(prog, chunk, False) / chunk
+        prog.free()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, default=20.0)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=4)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stages.py needs a CUDA card", file=sys.stderr)
+        return 2
+    out = run(args.workload, args.seed, args.seconds, args.steps, args.rounds)
+    out["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -341,11 +341,12 @@ def run_shine_mapping_batch(config_path: str | None = None, cfg: SHINEConfig | N
         # run draws the batches an uninterrupted run would
         gen = torch.Generator(device).manual_seed(seed_for(cfg.seed, start))
         # a torch.profiler trace of one steady-state chunk (the second; a
-        # one-chunk run traces its only chunk)
+        # one-chunk run traces its only chunk), with the phase and the step's
+        # stage spans as its annotations
         trace_this = bool(cfg.profile_dir and not profiled
                           and (start > start_iter or start + n >= cfg.iters))
         t0 = get_time(device)
-        with timer.phase("train"), device_trace(cfg.profile_dir if trace_this else None):
+        with device_trace(cfg.profile_dir if trace_this else None), timer.phase("train"):
             params, opt_state, aux = trainer.train_chunk(
                 params, opt_state, grid.tables, dev_pool, n_valid, start, gen, settings, n,
                 group=group, pre_lookups=pre_lookups, batch_windows=batch_windows)

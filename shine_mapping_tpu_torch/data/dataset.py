@@ -6,6 +6,11 @@ pose/calib loading with first-frame re-referencing, per-frame preprocessing
 feature-grid growth hook, and the training-data pool with the sliding-window
 replay filter.
 
+While tracing is on (``utils.profiling``), each frame's ``load_and_sample``
+is the span ``data.prep`` (on whichever thread runs it), the pipelined data
+phase's wait for a frame ``data.wait``, the octree's growth ``data.octree``
+and the pool's append ``data.pool``.
+
 Device-first differences: the pools live host-side in numpy (cheap concat /
 filter) and are uploaded to the device once per training phase; random
 batch gathering then happens on the device inside the train loop (see
@@ -22,6 +27,7 @@ import numpy as np
 from numpy.linalg import inv
 
 from ..config import SHINEConfig
+from ..utils.profiling import span
 from . import io, pose as pose_io, preprocess, semantic_kitti
 from .sampler import SamplerParams, sample_rays
 
@@ -226,63 +232,64 @@ class LiDARDataset:
         deterministic per-frame generator so parallel workers don't race on
         the shared stream.
         """
-        cfg = self.config
-        if rng is None:
-            rng = np.random.default_rng((cfg.seed, frame_id))
-        pose_ref = self.poses_ref[frame_id]
-        pc, sem_labels = self.read_frame(frame_id)
+        with span("data.prep"):
+            cfg = self.config
+            if rng is None:
+                rng = np.random.default_rng((cfg.seed, frame_id))
+            pose_ref = self.poses_ref[frame_id]
+            pc, sem_labels = self.read_frame(frame_id)
 
-        bbx_min = np.array([-cfg.pc_radius, -cfg.pc_radius, cfg.min_z])
-        bbx_max = np.array([cfg.pc_radius, cfg.pc_radius, cfg.max_z])
-        if sem_labels is not None:
-            p = pc.points
-            mask = np.all((p >= bbx_min) & (p <= bbx_max), axis=1)
-            pc = pc.select(mask)
-            sem_labels = sem_labels[mask]
-        else:
-            pc = preprocess.crop_bbx(pc, bbx_min, bbx_max)
-
-        if cfg.estimate_normal:
-            pc = preprocess.estimate_normals(
-                pc, cfg.normal_radius_m, cfg.normal_max_nn,
-                orient_towards=np.zeros(3),
-            )
-        if cfg.rand_downsample:
-            n_before = len(pc)
-            k = int(round(n_before * cfg.rand_down_r))
-            idx = np.sort(rng.choice(n_before, size=min(k, n_before), replace=False))
-            pc = pc.select(idx)
+            bbx_min = np.array([-cfg.pc_radius, -cfg.pc_radius, cfg.min_z])
+            bbx_max = np.array([cfg.pc_radius, cfg.pc_radius, cfg.max_z])
             if sem_labels is not None:
-                sem_labels = sem_labels[idx]
-        else:
-            if sem_labels is not None and len(pc) > 0:
-                vmin = pc.points.min(axis=0)
-                keys = np.floor((pc.points - vmin) / cfg.vox_down_m).astype(np.int64)
-                packed = (keys[:, 0] << 42) | (keys[:, 1] << 21) | keys[:, 2]
-                _, first = np.unique(packed, return_index=True)
-                pc = pc.select(np.sort(first))
-                sem_labels = sem_labels[np.sort(first)]
+                p = pc.points
+                mask = np.all((p >= bbx_min) & (p <= bbx_max), axis=1)
+                pc = pc.select(mask)
+                sem_labels = sem_labels[mask]
             else:
-                pc = preprocess.voxel_downsample(pc, cfg.vox_down_m)
-        if cfg.filter_noise:
-            pc = preprocess.statistical_outlier_removal(pc, cfg.sor_nn, cfg.sor_std)
+                pc = preprocess.crop_bbx(pc, bbx_min, bbx_max)
 
-        frame_origin = pose_ref[:3, 3] * cfg.scale
-        pc_ref = pc.transform(pose_ref)
-        frame_down = preprocess.voxel_downsample(pc_ref, cfg.map_vox_down_m)
-        points_s = (pc_ref.points * cfg.scale).astype(np.float64)
-        normals = pc_ref.normals if cfg.estimate_normal else None
-        sampled = sample_rays(
-            points_s, frame_origin, self.sampler_params, rng,
-            normals=normals, sem_labels=sem_labels,
-        )
-        return {
-            "frame_id": frame_id,
-            "origin": frame_origin,
-            "points_s": points_s,
-            "frame_down": frame_down,
-            "sampled": sampled,
-        }
+            if cfg.estimate_normal:
+                pc = preprocess.estimate_normals(
+                    pc, cfg.normal_radius_m, cfg.normal_max_nn,
+                    orient_towards=np.zeros(3),
+                )
+            if cfg.rand_downsample:
+                n_before = len(pc)
+                k = int(round(n_before * cfg.rand_down_r))
+                idx = np.sort(rng.choice(n_before, size=min(k, n_before), replace=False))
+                pc = pc.select(idx)
+                if sem_labels is not None:
+                    sem_labels = sem_labels[idx]
+            else:
+                if sem_labels is not None and len(pc) > 0:
+                    vmin = pc.points.min(axis=0)
+                    keys = np.floor((pc.points - vmin) / cfg.vox_down_m).astype(np.int64)
+                    packed = (keys[:, 0] << 42) | (keys[:, 1] << 21) | keys[:, 2]
+                    _, first = np.unique(packed, return_index=True)
+                    pc = pc.select(np.sort(first))
+                    sem_labels = sem_labels[np.sort(first)]
+                else:
+                    pc = preprocess.voxel_downsample(pc, cfg.vox_down_m)
+            if cfg.filter_noise:
+                pc = preprocess.statistical_outlier_removal(pc, cfg.sor_nn, cfg.sor_std)
+
+            frame_origin = pose_ref[:3, 3] * cfg.scale
+            pc_ref = pc.transform(pose_ref)
+            frame_down = preprocess.voxel_downsample(pc_ref, cfg.map_vox_down_m)
+            points_s = (pc_ref.points * cfg.scale).astype(np.float64)
+            normals = pc_ref.normals if cfg.estimate_normal else None
+            sampled = sample_rays(
+                points_s, frame_origin, self.sampler_params, rng,
+                normals=normals, sem_labels=sem_labels,
+            )
+            return {
+                "frame_id": frame_id,
+                "origin": frame_origin,
+                "points_s": points_s,
+                "frame_down": frame_down,
+                "sampled": sampled,
+            }
 
     def process_frames_pipelined(self, frame_ids, workers: int = 4,
                                  incremental_on: bool = False) -> int:
@@ -309,9 +316,10 @@ class LiDARDataset:
                     nf = frame_ids[next_i]
                     futures[nf] = ex.submit(self.load_and_sample, nf)
                     next_i += 1
-                total += self._integrate_frame(
-                    futures.pop(f).result(), incremental_on
-                )
+                with span("data.wait"):
+                    prep = futures.pop(f).result()
+                total += self._integrate_frame(prep, incremental_on)
+                del prep  # the frame's samples, freed before the next wait
         return total
 
     def finalize_pool(self) -> None:
@@ -359,14 +367,16 @@ class LiDARDataset:
             )
         coord, sdf_label, normal_label, sem_label, weight, sample_depth, ray_depth = prep["sampled"]
         if self.grid is not None:
-            if cfg.octree_from_surface_samples:
-                self.grid.update(coord[weight > 0, :], incremental_on)
-            else:
-                self.grid.update(prep["points_s"], incremental_on)
-        self._append_pool(
-            frame_id, frame_origin, coord, sdf_label, normal_label,
-            sem_label, weight, sample_depth, ray_depth, incremental_on,
-        )
+            with span("data.octree"):
+                if cfg.octree_from_surface_samples:
+                    self.grid.update(coord[weight > 0, :], incremental_on)
+                else:
+                    self.grid.update(prep["points_s"], incremental_on)
+        with span("data.pool"):
+            self._append_pool(
+                frame_id, frame_origin, coord, sdf_label, normal_label,
+                sem_label, weight, sample_depth, ray_depth, incremental_on,
+            )
         return coord.shape[0]
 
     def process_frame(self, frame_id: int, incremental_on: bool = False) -> int:

@@ -30,8 +30,11 @@ tables, ``body_dense``, :1001, which also runs SGD).  One kernel step:
 
 JAX runs a chunk as one jitted ``lax.scan``; here it is a Python loop of
 eager torch ops that update the parameters and the optimizer state in
-place.  Both feature-update modes run the same reference dense Adam: on the
-card through the CUDA kernel, on the CPU through its plain twin.
+place.  While tracing is on (``utils.profiling``), the loop and the aux
+stacking are the span ``chunk``, each step ``step``, with the children
+``step.forward`` (steps 1-3), ``step.backward`` and ``step.update`` (4-5).
+Both feature-update modes run the same reference dense Adam: on the card
+through the CUDA kernel, on the CPU through its plain twin.
 ``fuse_update_levels`` picks the kernel's multi-level entry point (one
 launch per step over all levels' tables) over the per-level one on iid
 batches; with windows the window layout picks it.
@@ -79,6 +82,7 @@ from ..ops import adam_kernel
 from ..ops.adam_kernel import EntryPrep
 from ..ops.hashgrid import LevelTable, lookup_level
 from ..ops.interp import corner_weights
+from ..utils.profiling import span
 from . import losses, sparse_adam
 from .optimizer import (
     FEATURES,
@@ -1511,236 +1515,243 @@ def train_chunk(
     def one_step(step, it):
         """One step (JAX's scan body): the batch, the loss and its
         gradients, the decoders' and the tables' update; returns the aux."""
-        wsel = None
-        ray_idx = None
-        if batch_windows is not None:
-            wsel = step % batch_windows.n_windows
-            idx = batch_windows.idx[wsel]
-        else:
-            if batch_indices is not None:
-                draw = batch_indices[it].to(device=device, dtype=torch.int64)
-            else:
-                hi = int(n_valid) // s.ray_sample_count if s.ray_loss else int(n_valid)
-                draw = torch.randint(0, hi, (s.bs,), generator=generator, device=device)
-            if s.ray_loss:
-                ray_idx = draw
-                S = s.ray_sample_count
-                idx = (ray_idx[:, None] * S + torch.arange(S, device=device)[None, :]).reshape(-1)
-            else:
-                idx = torch.sort(draw).values if s.sort_batch else draw
-        counts = None
-        idx_all = idx
-        sl = None
-        if dp:
-            # this rank's slice of the global batch; the loss's counts are
-            # the whole batch's
-            sl = group.batch_slice(idx.shape[0])
-            idx = idx[sl]
-            if ray_idx is not None:
-                ray_idx = ray_idx[group.batch_slice(s.bs)]
-            counts = {"n": int(idx_all.shape[0]), "n_rays": s.bs,
-                      "n_sem": -(-int(idx_all.shape[0]) // s.sem_label_decimation),
-                      "n_near": (int(near_indices.shape[1]) if near_indices is not None
-                                 else min(s.consistency_count, int(idx_all.shape[0])))}
-            if s.ekional_loss_on or s.normal_loss_on:
-                counts["n_surf"] = (pool["weight"][idx_all] > 0).sum()
-        batch = _gather_batch(pool, idx, s)
-        if ray_idx is not None:
-            batch["ray_depth"] = pool["ray_depth"][ray_idx]
-        corners = None
-        if routed:
-            found = [pre_lookups[i][1][idx] for i in range(L)]
-        elif pre_lookups is not None:
-            corners = [pre_lookups[i][0][idx] for i in range(L)]
-            found = [pre_lookups[i][1][idx] for i in range(L)]
-        else:
-            corners, found = _lookups(tables, feats, batch["coord"], s.levels, sizes)
-        near = None
-        if s.consistency_loss_on:
-            lo = sl.start if dp else 0
-            n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
-                                           near_shifts, int(idx_all.shape[0]), lo)
-            # live probes even with pool lookups: the near points are not pool samples
-            corners_n, found_n = _lookups(tables, feats, n_coords, s.levels, sizes)
-            near = {"idx": n_idx, "coords": n_coords, "corners": corners_n, "found": found_n,
-                    "cnt": counts["n_near"] if dp else None}
-        route = None
-        if live:
-            route, G, G_near = live_rows(corners, found, near)
-            if near is not None:
-                near["G"] = G_near
-        else:
-            if near is not None:
-                near["G"] = _gather_rows(feats, near["corners"], leaf=not autodiff)
-            G = routed_rows(wsel) if routed else _gather_rows(feats, corners,
-                                                              leaf=not autodiff)
-        for p in dense.values():
-            p.grad = None
-        if autodiff:
-            for f in feats:
-                f.grad = None
-
-        total, aux = _compute_loss_sparse(params, G, batch, found, s, near, counts)
-        if mode == "dense" and s.continual_reg_on and not dp:
-            reg = _dense_reg(s, shadow, feats, corners)
-            total = total + s.lambda_forget * reg
-            aux["reg_loss"] = reg
-            aux["total_loss"] = total
-        total.backward()
-
-        lr = lr_at_step(s.lr, step, s.lr_decay_step, s.lr_iters_reduce_ratio)
-        dense_grads = {k: p.grad for k, p in dense.items()}
-        if dp:
-            # the decoders' gradients summed across ranks (rank order)
-            have = [k for k, g in dense_grads.items() if g is not None]
-            dense_grads.update(zip(have, comm.sum_across(group, [dense_grads[k] for k in have])))
-            if autodiff:
-                summed = []
-                for i, f in enumerate(feats):
-                    mine = corners[i].reshape(-1).long()
-                    rows = torch.unique(torch.cat(
-                        [mine] + ([near["corners"][i].reshape(-1).long()] if near is not None
-                                  else [])))
-                    vals = f.grad[rows]
-                    if s.continual_reg_on:  # a last column marks the samples' rows (the reg's)
-                        vals = torch.cat([vals, torch.isin(rows, mine).to(vals.dtype)[:, None]],
-                                         dim=1)
-                    summed.append(_sum_rows(group, rows, vals))
-                g_rows, reg = reg_rows([u for u, _ in summed], [t for _, t in summed])
-                for f, (u, _), g in zip(feats, summed, g_rows):
-                    f.grad = torch.zeros_like(f.grad).index_put_((u,), g)
-                if reg is not None:
-                    _whole_reg(aux, reg)
-        if not s.opt_adam:
-            # SGD runs the dense update only (JAX _resolve_mode)
-            sgd_update(dense, dense_grads, opt_state, lr, lr_scale, wd)
-            if live:
-                live_update(route, G, near["G"] if near else None, lr, None, None, aux)
-                return aux
-            for i, f in enumerate(feats):
-                sgd_leaf(f, f.grad, m_feats[i], lr * lr_scale[FEATURES][i], 0.0)
-            return aux
-        adam_update(dense, dense_grads, opt_state, lr, lr_scale, wd, b1=0.9, b2=0.99,
-                    eps=s.adam_eps)
-        bc1, bc2 = bias_corrections(opt_state.step)
-        if live:
-            live_update(route, G, near["G"] if near else None, lr, bc1, bc2, aux)
-            return aux
-        if autodiff:
-            for i, f in enumerate(feats):
-                adam_leaf(f, f.grad, m_feats[i], v_feats[i], lr * lr_scale[FEATURES][i], 0.0,
-                          bc1, bc2, eps=s.adam_eps)
-            return aux
-        grads = [g_i.grad for g_i in G]
-        if mode == "sparse":
-            reg_total = None
-            for i in range(L):
-                seg = sparse_adam.segment_by_row(corners[i], grads[i], feats[i].shape[0])
-                if dp:
-                    seg = sparse_adam.SegmentedGrads(*_sum_rows(group, seg.rows, seg.grads))
-                kw = {}
-                if s.continual_reg_on:
-                    kw = dict(reg_lambda=s.lambda_forget, importance=shadow["importance"][i],
-                              last_frame=shadow["last_frame"][i])
-                reg_i = sparse_adam.sparse_adam_level(
-                    feats[i], m_feats[i], v_feats[i], seg, lr * lr_scale[FEATURES][i], bc1, bc2,
-                    eps=s.adam_eps, **kw)
-                reg_total = reg_i if reg_total is None else reg_total + reg_i
-            if s.continual_reg_on and dp:
-                _whole_reg(aux, reg_total)
-            elif s.continual_reg_on:
-                aux["reg_loss"] = reg_total
-                aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg_total
-            return aux
-        if routed:
-            routed_update(wsel, grads, lr, bc1, bc2, step)
-            return aux
-        if dp:
-            R = gathered_rows(corners, near)  # (n, L, M_loc)
-        if s.continual_reg_on:
-            # replicated ranks fold the reg into their own entries before the
-            # gather (bf16 entries rounded once), with their slice of the
-            # whole batch's owner flags: the windows', or from every rank's
-            # rows (a miss's row is the trashbin, which no found corner holds)
+        with span("step.forward"):
+            wsel = None
+            ray_idx = None
             if batch_windows is not None:
-                owner = [o[wsel] if sl is None else o[wsel][sl] for o in batch_windows.owner]
-            elif dp:
-                b8 = corners[0].numel()
-                owner = [owner_flags(w, w[:, 0] != C - 1)[sl] for w, C in
-                         zip((R[:, i, :b8].reshape(-1, 8) for i in range(L)), sizes)]
+                wsel = step % batch_windows.n_windows
+                idx = batch_windows.idx[wsel]
             else:
-                owner = [owner_flags(c, f) for c, f in zip(corners, found)]
-            grads, reg = _reg_fold(s, shadow, corners, G, grads, owner)
-            # over several ranks this rank's share: the chunk's sum adds them
-            aux["reg_loss"] = reg
-            aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
-        if dp:
-            corners = [R[:, i].reshape(-1).contiguous() for i in range(L)]
-            grads = gathered_grads(grads, near)
-        elif near is not None:
-            # the near points' rows ride the update as extra entries
-            corners = [torch.cat([c.reshape(-1, 8), cn.reshape(-1, 8)])
-                       for c, cn in zip(corners, near["corners"])]
-            grads = [torch.cat([g, gn.grad]) for g, gn in zip(grads, near["G"])]
-        kw = dict(eps=s.adam_eps, grads_bf16=grads_bf16)
-        if dp:  # the replicas' deterministic sum
-            kw["deterministic"] = True
-        if batch_windows is not None and batch_windows.fused:
-            noise = None
-            if sr_noise16 is not None:
-                noise = torch.split(sr_noise16[it], [int(f.numel()) for f in feats])
-            adam_kernel.fused_adam_multi(
-                feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                lr_scale[FEATURES], n_used, sr_seed=step if params_bf16 else None,
-                pre=adam_kernel.window_prep(batch_windows.preps[0], wsel),
-                noise16=noise, **kw)
-        elif batch_windows is not None:
-            for i in range(L):
-                adam_kernel.fused_adam(
-                    feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
-                    lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i],
-                    pre=adam_kernel.window_prep(batch_windows.preps[i], wsel), **kw)
-        elif s.fuse_update_levels:
-            dropped.add_(adam_kernel.fused_adam_multi(
-                feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                lr_scale[FEATURES], n_used, **kw))
-        else:
-            # K1 per level: on the card one prep and one launch for all levels
-            dropped.add_(adam_kernel.fused_adam_levels(
-                feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                lr_scale[FEATURES], n_used, **kw))
-        return aux
+                if batch_indices is not None:
+                    draw = batch_indices[it].to(device=device, dtype=torch.int64)
+                else:
+                    hi = int(n_valid) // s.ray_sample_count if s.ray_loss else int(n_valid)
+                    draw = torch.randint(0, hi, (s.bs,), generator=generator, device=device)
+                if s.ray_loss:
+                    ray_idx = draw
+                    S = s.ray_sample_count
+                    idx = (ray_idx[:, None] * S
+                           + torch.arange(S, device=device)[None, :]).reshape(-1)
+                else:
+                    idx = torch.sort(draw).values if s.sort_batch else draw
+            counts = None
+            idx_all = idx
+            sl = None
+            if dp:
+                # this rank's slice of the global batch; the loss's counts are
+                # the whole batch's
+                sl = group.batch_slice(idx.shape[0])
+                idx = idx[sl]
+                if ray_idx is not None:
+                    ray_idx = ray_idx[group.batch_slice(s.bs)]
+                counts = {"n": int(idx_all.shape[0]), "n_rays": s.bs,
+                          "n_sem": -(-int(idx_all.shape[0]) // s.sem_label_decimation),
+                          "n_near": (int(near_indices.shape[1]) if near_indices is not None
+                                     else min(s.consistency_count, int(idx_all.shape[0])))}
+                if s.ekional_loss_on or s.normal_loss_on:
+                    counts["n_surf"] = (pool["weight"][idx_all] > 0).sum()
+            batch = _gather_batch(pool, idx, s)
+            if ray_idx is not None:
+                batch["ray_depth"] = pool["ray_depth"][ray_idx]
+            corners = None
+            if routed:
+                found = [pre_lookups[i][1][idx] for i in range(L)]
+            elif pre_lookups is not None:
+                corners = [pre_lookups[i][0][idx] for i in range(L)]
+                found = [pre_lookups[i][1][idx] for i in range(L)]
+            else:
+                corners, found = _lookups(tables, feats, batch["coord"], s.levels, sizes)
+            near = None
+            if s.consistency_loss_on:
+                lo = sl.start if dp else 0
+                n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
+                                               near_shifts, int(idx_all.shape[0]), lo)
+                # live probes even with pool lookups: the near points are not pool samples
+                corners_n, found_n = _lookups(tables, feats, n_coords, s.levels, sizes)
+                near = {"idx": n_idx, "coords": n_coords, "corners": corners_n, "found": found_n,
+                        "cnt": counts["n_near"] if dp else None}
+            route = None
+            if live:
+                route, G, G_near = live_rows(corners, found, near)
+                if near is not None:
+                    near["G"] = G_near
+            else:
+                if near is not None:
+                    near["G"] = _gather_rows(feats, near["corners"], leaf=not autodiff)
+                G = routed_rows(wsel) if routed else _gather_rows(feats, corners,
+                                                                  leaf=not autodiff)
+            for p in dense.values():
+                p.grad = None
+            if autodiff:
+                for f in feats:
+                    f.grad = None
+
+            total, aux = _compute_loss_sparse(params, G, batch, found, s, near, counts)
+            if mode == "dense" and s.continual_reg_on and not dp:
+                reg = _dense_reg(s, shadow, feats, corners)
+                total = total + s.lambda_forget * reg
+                aux["reg_loss"] = reg
+                aux["total_loss"] = total
+        with span("step.backward"):
+            total.backward()
+
+        with span("step.update"):
+            lr = lr_at_step(s.lr, step, s.lr_decay_step, s.lr_iters_reduce_ratio)
+            dense_grads = {k: p.grad for k, p in dense.items()}
+            if dp:
+                # the decoders' gradients summed across ranks (rank order)
+                have = [k for k, g in dense_grads.items() if g is not None]
+                dense_grads.update(zip(have, comm.sum_across(group,
+                                                             [dense_grads[k] for k in have])))
+                if autodiff:
+                    summed = []
+                    for i, f in enumerate(feats):
+                        mine = corners[i].reshape(-1).long()
+                        rows = torch.unique(torch.cat(
+                            [mine] + ([near["corners"][i].reshape(-1).long()] if near is not None
+                                      else [])))
+                        vals = f.grad[rows]
+                        if s.continual_reg_on:  # a last column marks the samples' rows (the reg's)
+                            vals = torch.cat([vals, torch.isin(rows, mine).to(vals.dtype)[:, None]],
+                                             dim=1)
+                        summed.append(_sum_rows(group, rows, vals))
+                    g_rows, reg = reg_rows([u for u, _ in summed], [t for _, t in summed])
+                    for f, (u, _), g in zip(feats, summed, g_rows):
+                        f.grad = torch.zeros_like(f.grad).index_put_((u,), g)
+                    if reg is not None:
+                        _whole_reg(aux, reg)
+            if not s.opt_adam:
+                # SGD runs the dense update only (JAX _resolve_mode)
+                sgd_update(dense, dense_grads, opt_state, lr, lr_scale, wd)
+                if live:
+                    live_update(route, G, near["G"] if near else None, lr, None, None, aux)
+                    return aux
+                for i, f in enumerate(feats):
+                    sgd_leaf(f, f.grad, m_feats[i], lr * lr_scale[FEATURES][i], 0.0)
+                return aux
+            adam_update(dense, dense_grads, opt_state, lr, lr_scale, wd, b1=0.9, b2=0.99,
+                        eps=s.adam_eps)
+            bc1, bc2 = bias_corrections(opt_state.step)
+            if live:
+                live_update(route, G, near["G"] if near else None, lr, bc1, bc2, aux)
+                return aux
+            if autodiff:
+                for i, f in enumerate(feats):
+                    adam_leaf(f, f.grad, m_feats[i], v_feats[i], lr * lr_scale[FEATURES][i], 0.0,
+                              bc1, bc2, eps=s.adam_eps)
+                return aux
+            grads = [g_i.grad for g_i in G]
+            if mode == "sparse":
+                reg_total = None
+                for i in range(L):
+                    seg = sparse_adam.segment_by_row(corners[i], grads[i], feats[i].shape[0])
+                    if dp:
+                        seg = sparse_adam.SegmentedGrads(*_sum_rows(group, seg.rows, seg.grads))
+                    kw = {}
+                    if s.continual_reg_on:
+                        kw = dict(reg_lambda=s.lambda_forget, importance=shadow["importance"][i],
+                                  last_frame=shadow["last_frame"][i])
+                    reg_i = sparse_adam.sparse_adam_level(
+                        feats[i], m_feats[i], v_feats[i], seg, lr * lr_scale[FEATURES][i], bc1, bc2,
+                        eps=s.adam_eps, **kw)
+                    reg_total = reg_i if reg_total is None else reg_total + reg_i
+                if s.continual_reg_on and dp:
+                    _whole_reg(aux, reg_total)
+                elif s.continual_reg_on:
+                    aux["reg_loss"] = reg_total
+                    aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg_total
+                return aux
+            if routed:
+                routed_update(wsel, grads, lr, bc1, bc2, step)
+                return aux
+            if dp:
+                R = gathered_rows(corners, near)  # (n, L, M_loc)
+            if s.continual_reg_on:
+                # replicated ranks fold the reg into their own entries before the
+                # gather (bf16 entries rounded once), with their slice of the
+                # whole batch's owner flags: the windows', or from every rank's
+                # rows (a miss's row is the trashbin, which no found corner holds)
+                if batch_windows is not None:
+                    owner = [o[wsel] if sl is None else o[wsel][sl] for o in batch_windows.owner]
+                elif dp:
+                    b8 = corners[0].numel()
+                    owner = [owner_flags(w, w[:, 0] != C - 1)[sl] for w, C in
+                             zip((R[:, i, :b8].reshape(-1, 8) for i in range(L)), sizes)]
+                else:
+                    owner = [owner_flags(c, f) for c, f in zip(corners, found)]
+                grads, reg = _reg_fold(s, shadow, corners, G, grads, owner)
+                # over several ranks this rank's share: the chunk's sum adds them
+                aux["reg_loss"] = reg
+                aux["total_loss"] = aux["total_loss"] + s.lambda_forget * reg
+            if dp:
+                corners = [R[:, i].reshape(-1).contiguous() for i in range(L)]
+                grads = gathered_grads(grads, near)
+            elif near is not None:
+                # the near points' rows ride the update as extra entries
+                corners = [torch.cat([c.reshape(-1, 8), cn.reshape(-1, 8)])
+                           for c, cn in zip(corners, near["corners"])]
+                grads = [torch.cat([g, gn.grad]) for g, gn in zip(grads, near["G"])]
+            kw = dict(eps=s.adam_eps, grads_bf16=grads_bf16)
+            if dp:  # the replicas' deterministic sum
+                kw["deterministic"] = True
+            if batch_windows is not None and batch_windows.fused:
+                noise = None
+                if sr_noise16 is not None:
+                    noise = torch.split(sr_noise16[it], [int(f.numel()) for f in feats])
+                adam_kernel.fused_adam_multi(
+                    feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
+                    lr_scale[FEATURES], n_used, sr_seed=step if params_bf16 else None,
+                    pre=adam_kernel.window_prep(batch_windows.preps[0], wsel),
+                    noise16=noise, **kw)
+            elif batch_windows is not None:
+                for i in range(L):
+                    adam_kernel.fused_adam(
+                        feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
+                        lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i],
+                        pre=adam_kernel.window_prep(batch_windows.preps[i], wsel), **kw)
+            elif s.fuse_update_levels:
+                dropped.add_(adam_kernel.fused_adam_multi(
+                    feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
+                    lr_scale[FEATURES], n_used, **kw))
+            else:
+                # K1 per level: on the card one prep and one launch for all levels
+                dropped.add_(adam_kernel.fused_adam_levels(
+                    feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
+                    lr_scale[FEATURES], n_used, **kw))
+            return aux
 
     dropped = torch.zeros((), dtype=torch.int64, device=device)
     hist: List[Dict[str, torch.Tensor]] = []
     if autodiff:
         for f in feats:
             f.requires_grad_(True)
-    try:
-        for it in range(n_iters):
-            step = start_iter + it
-            aux = one_step(step, it)
-            hist.append({k: a.detach() for k, a in aux.items()})
-    finally:
-        if autodiff:
-            for f in feats:
-                f.requires_grad_(False)
-                f.grad = None
+    with span("chunk"):
+        try:
+            for it in range(n_iters):
+                step = start_iter + it
+                with span("step"):
+                    aux = one_step(step, it)
+                hist.append({k: a.detach() for k, a in aux.items()})
+        finally:
+            if autodiff:
+                for f in feats:
+                    f.requires_grad_(False)
+                    f.grad = None
 
-    n_dropped = int(dropped)
-    if n_dropped:
-        raise ValueError(
-            f"{n_dropped} gradient entries fell past the n_used heads "
-            f"{tuple(n_used)}: the hint is stale (recompute used_rows_for); the "
-            "chunk's steps were applied without them, so discard these tables")
-    if not hist:
-        return params, opt_state, {"mean": {}, "last": {}}
-    stacked = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
-    if dp:
-        # each rank's terms are its share of the whole batch's: sum them
-        keys = sorted(stacked)
-        stacked = dict(zip(keys, comm.sum_across(group, [stacked[k] for k in keys])))
-    return params, opt_state, {
-        "mean": {k: a.mean() for k, a in stacked.items()},
-        "last": {k: a[-1] for k, a in stacked.items()},
-    }
+        n_dropped = int(dropped)
+        if n_dropped:
+            raise ValueError(
+                f"{n_dropped} gradient entries fell past the n_used heads "
+                f"{tuple(n_used)}: the hint is stale (recompute used_rows_for); the "
+                "chunk's steps were applied without them, so discard these tables")
+        if not hist:
+            return params, opt_state, {"mean": {}, "last": {}}
+        stacked = {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+        if dp:
+            # each rank's terms are its share of the whole batch's: sum them
+            keys = sorted(stacked)
+            stacked = dict(zip(keys, comm.sum_across(group, [stacked[k] for k in keys])))
+        return params, opt_state, {
+            "mean": {k: a.mean() for k, a in stacked.items()},
+            "last": {k: a[-1] for k, a in stacked.items()},
+        }

@@ -152,15 +152,26 @@ def test_cli_pool_rotation(world, tmp_path, capsys):
 
 
 def test_cli_profile_trace(world, tmp_path):
-    """``tpu.profile_dir``: a torch.profiler trace of one steady-state chunk."""
+    """``tpu.profile_dir``: a torch.profiler trace of one steady-state chunk,
+    with the ``train`` phase and its 30 steps' stage spans as annotations
+    (tracing on for the traced chunk only)."""
     from shine_mapping_tpu_torch.cli.shine_batch import run_shine_mapping_batch
+    from shine_mapping_tpu_torch.utils import profiling
 
     root, _ = world
     trace_dir = str(tmp_path / "profout")
-    run_shine_mapping_batch(cfg=port_cfg(root, str(tmp_path), iters=60, scan_chunk=30,
-                                         vis_freq_iters=0, profile_dir=trace_dir))
+    try:
+        run_shine_mapping_batch(cfg=port_cfg(root, str(tmp_path), iters=60, scan_chunk=30,
+                                             vis_freq_iters=0, profile_dir=trace_dir))
+        assert profiling.tracing(False) is False
+    finally:
+        profiling.clear_spans()
     with open(os.path.join(trace_dir, "trace.json")) as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("train") == names.count("chunk") == 1
+    for n in ("step", "step.forward", "step.backward", "step.update"):
+        assert names.count(n) == 30, n
 
 
 def test_cli_needs_a_card_unless_the_config_says_cpu(world, tmp_path, monkeypatch):
