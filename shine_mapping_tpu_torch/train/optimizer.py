@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 FEATURES = "features"
@@ -28,6 +29,9 @@ class OptState:
     m: Dict[str, Any]  # flat dense names -> tensor, plus "features": [tensor]
     v: Dict[str, Any]
     step: int = 0
+    # the trainer's recorded iid step (train.trainer), kept with the state it
+    # updates; never saved
+    graph: Any = None
 
 
 def dense_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -103,17 +107,43 @@ def adam_update(
 
 @torch.no_grad()
 def adam_leaf(p: torch.Tensor, g: Optional[torch.Tensor], m: torch.Tensor,
-              v: torch.Tensor, lr: float, wd: float, bc1: float, bc2: float,
+              v: torch.Tensor, lr, wd: float, bc1, bc2,
               b1: float = 0.9, b2: float = 0.99, eps: float = 1e-15) -> None:
     """One tensor's Adam step in place, at learning rate ``lr`` (the group's
-    scale applied), with the step's bias corrections ``bc1``, ``bc2``."""
+    scale applied; 0 or None keeps ``p`` as it is), with the step's bias
+    corrections ``bc1``, ``bc2``.  The three are Python numbers, or 0-dim
+    float32 device tensors (:func:`adam_scalars`) where a recorded CUDA
+    graph reads them anew at each replay, the corrections then as their
+    reciprocals: torch multiplies a CUDA tensor by a Python scalar rounded
+    to float32 and divides it by one as a multiply by the reciprocal rounded
+    to float32, so on CUDA tensors both forms compute the same bits."""
     g = torch.zeros_like(p) if g is None else g
     if wd:
         g = g + wd * p
     m.mul_(b1).add_((1.0 - b1) * g)
     v.mul_(b2).add_((1.0 - b2) * (g * g))
-    if lr:
+    if lr is None or not (torch.is_tensor(lr) or lr):
+        return
+    if torch.is_tensor(bc1):
+        p.sub_(lr * (m * bc1) / (torch.sqrt(v * bc2) + eps))
+    else:
         p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+
+
+def adam_scalars(lrs: Sequence[float], lr_scale: Dict[str, float], names: Sequence[str],
+                 steps: Sequence[int], b1: float = 0.9, b2: float = 0.99) -> np.ndarray:
+    """The numbers :func:`adam_leaf` reads from the device, one row for each
+    Adam step ``steps[t]`` at learning rate ``lrs[t]``: float32 ``lr *
+    lr_scale[k]`` for each of ``names``, then the bias corrections' reciprocals, taken in
+    float64 and rounded to float32, as torch computes them on the host where
+    :func:`adam_leaf` multiplies or divides a CUDA tensor by a Python scalar
+    (the reciprocal of the float32 correction differs from it in the last
+    bit at some steps: 2 for b2 0.99, 5 and 7 for b1 0.9).  (T, len(names)
+    + 2) float32."""
+    scale = np.array([lr_scale[k] for k in names], dtype=np.float64)
+    lr32 = (np.asarray(lrs, dtype=np.float64)[:, None] * scale[None, :]).astype(np.float32)
+    bc = np.array([bias_corrections(t, b1, b2) for t in steps], dtype=np.float64)
+    return np.concatenate([lr32, (1.0 / bc.reshape(-1, 2)).astype(np.float32)], axis=1)
 
 
 @torch.no_grad()

@@ -29,10 +29,21 @@ tables, ``body_dense``, :1001, which also runs SGD).  One kernel step:
    gradients to the batch's as extra entries.
 
 JAX runs a chunk as one jitted ``lax.scan``; here it is a Python loop of
-eager torch ops that update the parameters and the optimizer state in
-place.  While tracing is on (``utils.profiling``), the loop and the aux
-stacking are the span ``chunk``, each step ``step``, with the children
-``step.forward`` (steps 1-3), ``step.backward`` and ``step.update`` (4-5).
+torch ops that update the parameters and the optimizer state in place.
+Where the call's arguments allow it (:func:`step_graph_ok`: CUDA tables on
+one card, iid batches through pool lookups, the kernel update with Adam,
+no term that draws or probes more each step), a step runs as one recorded
+CUDA graph from the drawn indices through the decoders' Adam: a key's
+first step runs eagerly, its second records the graph
+(:func:`step_graph_key` is what it bakes in) and replays it, and every
+later step replays it; the draw, the tables' update (K1 or K2, with its
+prep) and Adam's host bookkeeping stay eager around it, bit for bit the
+eager step.  ``GRAPH_COUNTS`` counts the steps each way.  Every other
+path runs eagerly.  While tracing is on (``utils.profiling``), the loop and
+the aux stacking are the span ``chunk``, each step ``step``, with the
+children ``step.forward`` (steps 1-3), ``step.backward`` and
+``step.update`` (4-5) on an eager or recording step, and ``step.replay``
+(the draw, the replay, the tables' update) on a replayed one.
 Both feature-update modes run the same reference dense Adam: on the card
 through the CUDA kernel, on the CPU through its plain twin.
 ``fuse_update_levels`` picks the kernel's multi-level entry point (one
@@ -88,6 +99,7 @@ from .optimizer import (
     FEATURES,
     OptState,
     adam_leaf,
+    adam_scalars,
     adam_update,
     bias_corrections,
     dense_params,
@@ -903,6 +915,85 @@ def batch_loss(params, tables, pool, idx, settings: TrainSettings) -> Dict[str, 
     return {k: a.detach() for k, a in aux.items()}
 
 
+# train_chunk's steps by how they ran: eagerly, recorded as a CUDA graph,
+# replayed from one (a recording step also replays)
+GRAPH_COUNTS = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def reset_graph_counts() -> None:
+    for k in GRAPH_COUNTS:
+        GRAPH_COUNTS[k] = 0
+
+
+def step_graph_ok(settings: TrainSettings, device, group=None, pre_lookups=None,
+                  batch_windows=None, batch_indices=None) -> bool:
+    """Whether :func:`train_chunk`'s iid steps run as one recorded CUDA
+    graph: CUDA tables on one card (no ``group``), batches drawn from the
+    generator (no windows, no ``batch_indices``) and gathered through
+    ``pre_lookups``, the kernel update on the tables (K1's per-level step,
+    or K2 under ``fuse_update_levels``) with Adam, and none of the terms
+    that draw or probe more each step (consistency, ray loss) or read the
+    shadow tables (the continual reg)."""
+    s = settings
+    return (torch.device(device).type == "cuda" and group is None and batch_windows is None
+            and batch_indices is None and pre_lookups is not None and s.opt_adam
+            and resolve_feature_update(s) in ("fused", "pallas")
+            and not (s.consistency_loss_on or s.continual_reg_on or s.ray_loss))
+
+
+def _signature(t: torch.Tensor):
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, str(t.device))
+
+
+def step_graph_key(params, opt_state: OptState, pool, pre_lookups, settings: TrainSettings,
+                   n_valid: int, zero_lr=frozenset()):
+    """What a recorded step reads and bakes in: the address, shape, strides
+    and dtype of every tensor it reads or writes (the decoders, tables and
+    their moments, the pool, the pool's lookups), the settings, ``n_valid``
+    and, last, the dense leaves whose lr scale is 0 (``zero_lr``, the frozen
+    decoders: the update leaves them out).  A step whose key differs records anew."""
+    dense = dense_params(params)
+    ts = list(dense.values()) + list(params[FEATURES])
+    for st in (opt_state.m, opt_state.v):
+        ts += [st[k] for k in dense] + list(st[FEATURES])
+    ts += [pool[k] for k in sorted(pool)] + [t for pair in pre_lookups for t in pair]
+    return (settings, int(n_valid), tuple(dense), tuple(sorted(pool)),
+            tuple(_signature(t) for t in ts), frozenset(zero_lr))
+
+
+def _record_graph(body):
+    """``body`` recorded once as a CUDA graph (its device work does not run
+    then); returns the graph's replay.  cuBLAS keeps a workspace for each
+    stream it runs on: cleared before and after the recording (as torch's
+    own graph trees do), the recording stream's, which lives in the graph's
+    pool, is the one workspace while it records, and the eager steps' is made
+    anew afterwards, so that the recording adds none to the peak.  Only this
+    thread's calls are checked while it records (``thread_local``): another
+    thread's copies (the batch CLI uploads the next sub-pool on one) go on."""
+    graph = torch.cuda.CUDAGraph()
+    torch._C._cuda_clearCublasWorkspaces()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body()
+    finally:
+        torch._C._cuda_clearCublasWorkspaces()
+    return graph.replay
+
+
+class _StepGraph:
+    """One key's recorded iid step (:func:`train_chunk`): the static inputs
+    it reads (the drawn indices, the step's Adam numbers) and the outputs it
+    leaves (the batch's corner rows and their gradients for the table
+    update, the aux stacked in ``aux_keys`` order).  ``replay`` is None until
+    the key's second step records it; the first runs eagerly."""
+
+    __slots__ = ("key", "replay", "draw", "scalars", "corners", "grads", "aux_keys", "aux")
+
+    def __init__(self, key):
+        self.key = key
+        self.replay = None
+
+
 def _check_supported(s: TrainSettings, mode: str, group, batch_windows) -> bool:
     """Raise ValueError for what the JAX package refuses over several ranks
     too.  Returns whether the chunk runs over several ranks."""
@@ -1534,64 +1625,67 @@ def train_chunk(
                            + torch.arange(S, device=device)[None, :]).reshape(-1)
                 else:
                     idx = torch.sort(draw).values if s.sort_batch else draw
-            counts = None
-            idx_all = idx
-            sl = None
-            if dp:
-                # this rank's slice of the global batch; the loss's counts are
-                # the whole batch's
-                sl = group.batch_slice(idx.shape[0])
-                idx = idx[sl]
-                if ray_idx is not None:
-                    ray_idx = ray_idx[group.batch_slice(s.bs)]
-                counts = {"n": int(idx_all.shape[0]), "n_rays": s.bs,
-                          "n_sem": -(-int(idx_all.shape[0]) // s.sem_label_decimation),
-                          "n_near": (int(near_indices.shape[1]) if near_indices is not None
-                                     else min(s.consistency_count, int(idx_all.shape[0])))}
-                if s.ekional_loss_on or s.normal_loss_on:
-                    counts["n_surf"] = (pool["weight"][idx_all] > 0).sum()
-            batch = _gather_batch(pool, idx, s)
-            if ray_idx is not None:
-                batch["ray_depth"] = pool["ray_depth"][ray_idx]
-            corners = None
-            if routed:
-                found = [pre_lookups[i][1][idx] for i in range(L)]
-            elif pre_lookups is not None:
-                corners = [pre_lookups[i][0][idx] for i in range(L)]
-                found = [pre_lookups[i][1][idx] for i in range(L)]
-            else:
-                corners, found = _lookups(tables, feats, batch["coord"], s.levels, sizes)
             near = None
-            if s.consistency_loss_on:
-                lo = sl.start if dp else 0
-                n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
-                                               near_shifts, int(idx_all.shape[0]), lo)
-                # live probes even with pool lookups: the near points are not pool samples
-                corners_n, found_n = _lookups(tables, feats, n_coords, s.levels, sizes)
-                near = {"idx": n_idx, "coords": n_coords, "corners": corners_n, "found": found_n,
-                        "cnt": counts["n_near"] if dp else None}
-            route = None
-            if live:
-                route, G, G_near = live_rows(corners, found, near)
-                if near is not None:
-                    near["G"] = G_near
+            if graphed:
+                corners, G, total, aux = iid_forward(idx)
             else:
-                if near is not None:
-                    near["G"] = _gather_rows(feats, near["corners"], leaf=not autodiff)
-                G = routed_rows(wsel) if routed else _gather_rows(feats, corners,
-                                                                  leaf=not autodiff)
-            for p in dense.values():
-                p.grad = None
-            if autodiff:
-                for f in feats:
-                    f.grad = None
+                counts = None
+                idx_all = idx
+                sl = None
+                if dp:
+                    # this rank's slice of the global batch; the loss's counts are
+                    # the whole batch's
+                    sl = group.batch_slice(idx.shape[0])
+                    idx = idx[sl]
+                    if ray_idx is not None:
+                        ray_idx = ray_idx[group.batch_slice(s.bs)]
+                    counts = {"n": int(idx_all.shape[0]), "n_rays": s.bs,
+                              "n_sem": -(-int(idx_all.shape[0]) // s.sem_label_decimation),
+                              "n_near": (int(near_indices.shape[1]) if near_indices is not None
+                                         else min(s.consistency_count, int(idx_all.shape[0])))}
+                    if s.ekional_loss_on or s.normal_loss_on:
+                        counts["n_surf"] = (pool["weight"][idx_all] > 0).sum()
+                batch = _gather_batch(pool, idx, s)
+                if ray_idx is not None:
+                    batch["ray_depth"] = pool["ray_depth"][ray_idx]
+                corners = None
+                if routed:
+                    found = [pre_lookups[i][1][idx] for i in range(L)]
+                elif pre_lookups is not None:
+                    corners = [pre_lookups[i][0][idx] for i in range(L)]
+                    found = [pre_lookups[i][1][idx] for i in range(L)]
+                else:
+                    corners, found = _lookups(tables, feats, batch["coord"], s.levels, sizes)
+                if s.consistency_loss_on:
+                    lo = sl.start if dp else 0
+                    n_idx, n_coords = _near_points(s, batch["coord"], it, generator, near_indices,
+                                                   near_shifts, int(idx_all.shape[0]), lo)
+                    # live probes even with pool lookups: the near points are not pool samples
+                    corners_n, found_n = _lookups(tables, feats, n_coords, s.levels, sizes)
+                    near = {"idx": n_idx, "coords": n_coords, "corners": corners_n,
+                            "found": found_n, "cnt": counts["n_near"] if dp else None}
+                route = None
+                if live:
+                    route, G, G_near = live_rows(corners, found, near)
+                    if near is not None:
+                        near["G"] = G_near
+                else:
+                    if near is not None:
+                        near["G"] = _gather_rows(feats, near["corners"], leaf=not autodiff)
+                    G = routed_rows(wsel) if routed else _gather_rows(feats, corners,
+                                                                      leaf=not autodiff)
+                for p in dense.values():
+                    p.grad = None
+                if autodiff:
+                    for f in feats:
+                        f.grad = None
 
-            total, aux = _compute_loss_sparse(params, G, batch, found, s, near, counts)
-            if mode == "dense" and s.continual_reg_on and not dp:
-                reg = _dense_reg(s, shadow, feats, corners)
-                total = total + s.lambda_forget * reg
-                aux["reg_loss"] = reg
-                aux["total_loss"] = total
+                total, aux = _compute_loss_sparse(params, G, batch, found, s, near, counts)
+                if mode == "dense" and s.continual_reg_on and not dp:
+                    reg = _dense_reg(s, shadow, feats, corners)
+                    total = total + s.lambda_forget * reg
+                    aux["reg_loss"] = reg
+                    aux["total_loss"] = total
         with span("step.backward"):
             total.backward()
 
@@ -1709,17 +1803,99 @@ def train_chunk(
                         feats[i], m_feats[i], v_feats[i], corners[i], grads[i],
                         lr * lr_scale[FEATURES][i], bc1, bc2, n_used[i],
                         pre=adam_kernel.window_prep(batch_windows.preps[i], wsel), **kw)
-            elif s.fuse_update_levels:
-                dropped.add_(adam_kernel.fused_adam_multi(
-                    feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                    lr_scale[FEATURES], n_used, **kw))
             else:
-                # K1 per level: on the card one prep and one launch for all levels
-                dropped.add_(adam_kernel.fused_adam_levels(
-                    feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
-                    lr_scale[FEATURES], n_used, **kw))
+                iid_update(corners, grads, lr, bc1, bc2, kw)
             return aux
 
+    def iid_update(corners, grads, lr, bc1, bc2, kw):
+        """The tables' update of an iid step: K2 over all levels under
+        ``fuse_update_levels``, else K1 per level (on the card one prep and
+        one launch for all levels)."""
+        update = (adam_kernel.fused_adam_multi if s.fuse_update_levels
+                  else adam_kernel.fused_adam_levels)
+        dropped.add_(update(feats, m_feats, v_feats, corners, grads, lr, bc1, bc2,
+                            lr_scale[FEATURES], n_used, **kw))
+
+    def iid_forward(idx):
+        """Steps 1-3 of an iid step on one card through the pool's lookups
+        (the eager step and the recorded one): the batch at ``idx``, its
+        corner rows and the loss.  Returns (corners, G, total, aux)."""
+        batch = _gather_batch(pool, idx, s)
+        corners = [pre_lookups[i][0][idx] for i in range(L)]
+        found = [pre_lookups[i][1][idx] for i in range(L)]
+        G = _gather_rows(feats, corners)
+        for p in dense.values():
+            p.grad = None
+        total, aux = _compute_loss_sparse(params, G, batch, found, s)
+        return corners, G, total, aux
+
+    def graph_body(g: _StepGraph):
+        """The recorded part of an iid step: from the drawn indices through
+        the decoders' Adam, with the step's numbers read from
+        ``g.scalars``."""
+        with span("step.forward"):
+            corners, G, total, aux = iid_forward(
+                torch.sort(g.draw).values if s.sort_batch else g.draw)
+        with span("step.backward"):
+            total.backward()
+        with span("step.update"):
+            inv_bc1, inv_bc2 = g.scalars[len(dense)], g.scalars[len(dense) + 1]
+            for j, (k, p) in enumerate(dense.items()):
+                adam_leaf(p, p.grad, opt_state.m[k], opt_state.v[k],
+                          None if k in zero_lr else g.scalars[j], wd[k], inv_bc1, inv_bc2,
+                          eps=s.adam_eps)
+        g.corners, g.grads = corners, [x.grad for x in G]
+        g.aux_keys = tuple(aux)
+        g.aux = torch.stack([a.detach() for a in aux.values()])
+
+    def graph_step(it):
+        """An iid step through the key's recorded graph, recorded at the
+        key's second step; None at its first, which runs eagerly (warming
+        cuBLAS and the allocator up).  The draw, the table update and the
+        host's bookkeeping stay eager: the draw into the graph's index
+        buffer from the same generator, and the step's Adam numbers,
+        uploaded once a chunk, copied into its slot.  Returns the aux."""
+        g = opt_state.graph
+        if g is None:
+            opt_state.graph = _StepGraph(key)
+            return None
+        if g.replay is None:
+            for p in dense.values():
+                p.grad = None
+            g.draw = torch.empty((s.bs,), dtype=torch.int64, device=device)
+            g.scalars = torch.empty((len(dense) + 2,), dtype=torch.float32, device=device)
+            g.replay = _record_graph(lambda: graph_body(g))
+            GRAPH_COUNTS["captured"] += 1
+        with span("step.replay"):
+            if not scalar_rows:  # every step advances Adam's count by one
+                scalar_rows.append(torch.from_numpy(adam_scalars(
+                    step_lrs, lr_scale, list(dense),
+                    [opt_state.step + 1 + t - it for t in range(n_iters)])).to(device))
+            lr = step_lrs[it]
+            opt_state.step += 1
+            bc1, bc2 = bias_corrections(opt_state.step)
+            torch.randint(0, int(n_valid), (s.bs,), generator=generator, out=g.draw)
+            g.scalars.copy_(scalar_rows[0][it])
+            g.replay()
+            iid_update(g.corners, g.grads, lr, bc1, bc2,
+                       dict(eps=s.adam_eps, grads_bf16=grads_bf16))
+            vals = g.aux.clone()
+        GRAPH_COUNTS["replayed"] += 1
+        return dict(zip(g.aux_keys, vals.unbind(0)))
+
+    step_lrs = [lr_at_step(s.lr, start_iter + it, s.lr_decay_step, s.lr_iters_reduce_ratio)
+                for it in range(n_iters)]
+    # a step at lr 0 (a decay ratio of 0) leaves every leaf as it is: eager
+    graphed = (step_graph_ok(s, device, group, pre_lookups, batch_windows, batch_indices)
+               and all(step_lrs))
+    # the leaves the update leaves as they are (frozen decoders), the chunk's
+    # key, and its Adam numbers once the graph first replays
+    zero_lr = frozenset(k for k in dense if lr_scale[k] == 0)
+    key, scalar_rows = None, []
+    if graphed:
+        key = step_graph_key(params, opt_state, pool, pre_lookups, s, n_valid, zero_lr)
+    if opt_state.graph is not None and opt_state.graph.key != key:
+        opt_state.graph = None  # another key, or a path the graph does not take
     dropped = torch.zeros((), dtype=torch.int64, device=device)
     hist: List[Dict[str, torch.Tensor]] = []
     if autodiff:
@@ -1730,8 +1906,15 @@ def train_chunk(
             for it in range(n_iters):
                 step = start_iter + it
                 with span("step"):
-                    aux = one_step(step, it)
+                    aux = graph_step(it) if graphed else None
+                    if aux is None:
+                        aux = one_step(step, it)
+                        GRAPH_COUNTS["eager"] += 1
                 hist.append({k: a.detach() for k, a in aux.items()})
+                # no step's autograd graph outlives it: a recording's backward
+                # would find the parameters' gradient accumulators of an eager
+                # step's graph, bound to its stream, and fail
+                del aux
         finally:
             if autodiff:
                 for f in feats:

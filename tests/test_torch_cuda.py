@@ -1367,3 +1367,220 @@ def test_shard_kernel_on_hot_live_prep_matches_plain(cuda_device, n):
             over = (a32 - c32).abs() - 2.0 ** -7 * c32.abs() - 2.0 ** -20 * float(
                 c32.abs().max())
             assert float(over.max()) <= 0, "bf16 p more than one bf16 ulp from plain"
+
+
+# ------------------------------------------------------------------ the recorded iid step
+
+
+def _graph_world(device, setting, n=40000, capacity=1 << 14):
+    """A sphere's band and free-space samples on the card, its map and pool
+    lookups: ``room`` (4 feature levels, no eikonal) or ``street`` (3
+    levels, the eikonal's second-order backward).  Returns (settings,
+    tables, pool, lookups, a function that makes the same fresh state)."""
+    from shine_mapping_tpu_torch.config import SHINEConfig
+    from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import FEATURES, init_opt_state
+
+    rng = np.random.default_rng(17)
+    dirs = rng.standard_normal((n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    disp = rng.uniform(-0.08, 0.08, (n, 1))
+    coord = (dirs * (0.5 + disp)).astype(np.float32)
+    levels = 4 if setting == "room" else 3
+    cfg = SHINEConfig()
+    cfg.tree_level_world, cfg.tree_level_feat, cfg.bs = 8, levels, 2048
+    cfg.ekional_loss_on, cfg.weight_e = setting == "street", 0.1
+    cfg.derive()
+    grid = HashGridHost(8, levels, D, 0.05, seed=3, init_node_capacity=capacity,
+                        init_corner_capacity=capacity, device=device)
+    grid.update((dirs * 0.5).astype(np.float32))
+    s = trainer.TrainSettings.from_config(cfg, grid.levels, sigma_sigmoid=0.05,
+                                          n_used=trainer.used_rows_for(grid))
+    near = np.abs(disp[:, 0]) < 0.02
+    pool = {"coord": torch.from_numpy(coord).to(device),
+            "sdf_label": torch.from_numpy(disp[:, 0].astype(np.float32)).to(device),
+            "weight": torch.from_numpy(np.where(near, 1.0, -0.5).astype(np.float32)).to(device),
+            "time": torch.zeros(n, device=device)}
+    pre = trainer.precompute_pool_lookups(grid.tables, pool["coord"], grid.levels,
+                                          [f.shape[0] for f in grid.features])
+
+    def fresh():
+        params = trainer.init_params(cfg, grid, torch.Generator(device).manual_seed(0))
+        params[FEATURES] = [f.clone() for f in params[FEATURES]]
+        return params, init_opt_state(params)
+
+    return s, grid.tables, pool, pre, fresh
+
+
+def _deterministic_k1(monkeypatch):
+    """K1 with its sorted, deterministic sum (the shared-memory atomics sum a
+    row's entries in no fixed order); returns the list of each launch's
+    dropped count."""
+    from shine_mapping_tpu_torch.ops import adam_kernel
+
+    inner, dropped = adam_kernel.fused_adam_levels, []
+
+    def det(*a, **k):
+        d = inner(*a, deterministic=True, **k)
+        dropped.append(int(d))
+        return d
+
+    monkeypatch.setattr(adam_kernel, "fused_adam_levels", det)
+    return dropped
+
+
+def _one_step_chunks(world, steps, eager, state=None, start=0, gen=None, chunk=1):
+    """``steps`` steps in chunks of ``chunk`` from ``state`` (default a
+    fresh one); ``eager``: one-step chunks with the graph cleared before
+    each, so every step is a key's first and runs eagerly.  Returns (params,
+    opt state, each chunk's last loss)."""
+    from shine_mapping_tpu_torch.train import trainer
+
+    s, tables, pool, pre, fresh = world
+    params, opt = state or fresh()
+    gen = gen or torch.Generator(pool["coord"].device).manual_seed(9)
+    losses = []
+    for k in range(0, steps, chunk):
+        if eager:
+            opt.graph = None
+        params, opt, aux = trainer.train_chunk(params, opt, tables, pool,
+                                               pool["coord"].shape[0], start + k, gen, s, chunk,
+                                               pre_lookups=pre)
+        losses.append(aux["last"]["total_loss"])
+    return params, opt, losses
+
+
+def _every_tensor(params, opt):
+    from shine_mapping_tpu_torch.train.optimizer import FEATURES, dense_params
+
+    out = dict(dense_params(params))
+    out.update({f"features.{i}": f for i, f in enumerate(params[FEATURES])})
+    for name, st in (("m", opt.m), ("v", opt.v)):
+        out.update({f"{name}.{k}": t for k, t in st.items() if k != FEATURES})
+        out.update({f"{name}.features.{i}": t for i, t in enumerate(st[FEATURES])})
+    return out
+
+
+def _assert_bit_equal(a, b):
+    ta, tb = _every_tensor(*a[:2]), _every_tensor(*b[:2])
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        assert ta[k].dtype == tb[k].dtype and torch.equal(ta[k], tb[k]), k
+    for x, y in zip(a[2], b[2]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 5], ids=["one-step-chunks", "one-chunk"])
+@pytest.mark.parametrize("setting", ["room", "street"])
+def test_recorded_step_equals_eager_steps_bit_for_bit(cuda_device, monkeypatch, setting, chunk):
+    """Five steps through the recorded graph (the first eager, the second
+    recorded and replayed, three replayed), in one-step chunks as the
+    benchmark's checked steps or in one chunk as the batch CLI, against
+    five eager steps from the same state on the same draws: every
+    parameter, moment, dropped count and loss (each step's, or the chunk's
+    last) bit for bit.  K1 takes its deterministic sum on both sides, so
+    that the comparison is the graph's."""
+    from shine_mapping_tpu_torch.train import trainer
+
+    world = _graph_world(cuda_device, setting)
+    dropped = _deterministic_k1(monkeypatch)
+    trainer.reset_graph_counts()
+    graphed = _one_step_chunks(world, 5, eager=False, chunk=chunk)
+    assert trainer.GRAPH_COUNTS == {"eager": 1, "captured": 1, "replayed": 4}
+    d_graph = list(dropped)
+    trainer.reset_graph_counts()
+    eager = _one_step_chunks(world, 5, eager=True)
+    assert trainer.GRAPH_COUNTS == {"eager": 5, "captured": 0, "replayed": 0}
+    assert d_graph == dropped[5:] and len(d_graph) == 5
+    assert float(eager[2][-1]) < float(eager[2][0])  # it trains
+    _assert_bit_equal(graphed, eager[:2] + (eager[2][chunk - 1::chunk],))
+    assert graphed[1].step == eager[1].step == 5
+
+
+@pytest.mark.cuda
+def test_recorded_step_counts_and_records_anew_for_a_new_table(cuda_device, monkeypatch):
+    """Three one-step chunks: 1 eager, 1 recorded, 2 replays.  A table
+    reallocated (another address) is a new key: its first step eager, the
+    next recorded; the steps stay the eager ones bit for bit."""
+    from shine_mapping_tpu_torch.train import trainer
+    from shine_mapping_tpu_torch.train.optimizer import FEATURES
+
+    world = _graph_world(cuda_device, "room")
+    _deterministic_k1(monkeypatch)
+    out = []
+    for eager in (False, True):
+        trainer.reset_graph_counts()
+        gen = torch.Generator(cuda_device).manual_seed(4)
+        p, o, l1 = _one_step_chunks(world, 3, eager, gen=gen)
+        if not eager:
+            assert trainer.GRAPH_COUNTS == {"eager": 1, "captured": 1, "replayed": 2}
+        p[FEATURES][0] = p[FEATURES][0].clone()
+        p, o, l2 = _one_step_chunks(world, 3, eager, (p, o), start=3, gen=gen)
+        if not eager:
+            assert trainer.GRAPH_COUNTS == {"eager": 2, "captured": 2, "replayed": 4}
+        out.append((p, o, l1 + l2))
+    _assert_bit_equal(*out)
+
+
+@pytest.mark.cuda
+def test_recorded_step_peak_memory_is_the_eager_steps(cuda_device):
+    """The allocator's peak over five steps with the graph is at most 1 %
+    above five eager steps' (both after a warm-up step on another state,
+    so that the eager stream's cuBLAS workspace exists in both), at a map
+    and pool of some size."""
+    from shine_mapping_tpu_torch.train import trainer
+
+    world = _graph_world(cuda_device, "street", n=1 << 20, capacity=1 << 20)
+    _one_step_chunks(world, 1, eager=True)
+    peaks = {}
+    for eager in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = _one_step_chunks(world, 5, eager)
+        torch.cuda.synchronize()
+        peaks[eager] = (torch.cuda.max_memory_allocated(), base,
+                        torch.cuda.memory_allocated())
+        del state
+    (pe, be, ae), (pg, bg, ag) = peaks[True], peaks[False]
+    print(f"eager peak {pe} (base {be}, after {ae}); graph peak {pg} (base {bg}, after {ag})")
+    assert pg <= 1.01 * pe
+
+
+@pytest.mark.cuda
+def test_recorded_step_records_while_another_thread_uploads(cuda_device, monkeypatch):
+    """The batch CLI uploads its next sub-pool on a thread of its own while
+    the chunk trains: a recording and its replays beside a thread that
+    copies host arrays to the card all along still give the eager steps'
+    bits, and the thread's copies all succeed."""
+    import threading
+
+    from shine_mapping_tpu_torch.train import trainer
+
+    world = _graph_world(cuda_device, "room")
+    _deterministic_k1(monkeypatch)
+    host = np.random.default_rng(0).normal(size=(1 << 20, 4)).astype(np.float32)
+    stop, errors, copies = threading.Event(), [], [0]
+
+    def upload():
+        try:
+            while not stop.is_set():
+                torch.from_numpy(host).to(cuda_device)
+                copies[0] += 1
+        except BaseException as e:  # noqa: BLE001  (read on the test's thread)
+            errors.append(e)
+
+    t = threading.Thread(target=upload, daemon=True)
+    t.start()
+    try:
+        trainer.reset_graph_counts()
+        graphed = _one_step_chunks(world, 5, eager=False)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors and copies[0] > 0
+    assert trainer.GRAPH_COUNTS == {"eager": 1, "captured": 1, "replayed": 4}
+    _assert_bit_equal(graphed, _one_step_chunks(world, 5, eager=True))

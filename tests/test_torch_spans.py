@@ -20,6 +20,7 @@ from shine_mapping_tpu_torch.train.optimizer import FEATURES, init_opt_state
 from shine_mapping_tpu_torch.utils import profiling
 from shine_mapping_tpu_torch.utils.profiling import span
 from tests import synth
+from tests.graph_stand_in import stand_in_graph  # noqa: F401  (a fixture)
 
 STAGES = ("step.forward", "step.backward", "step.update")
 
@@ -283,3 +284,36 @@ def test_pipelined_data_phase_records_each_stage(world):
     np.testing.assert_array_equal(ds0.pool.coord, ds1.pool.coord)
     np.testing.assert_array_equal(ds0.pool.sdf_label, ds1.pool.sdf_label)
     assert g0.corner_counts == g1.corner_counts
+
+
+def test_replayed_steps_record_one_replay_span_and_no_stages(mapped, stand_in_graph):
+    """A traced chunk through the recorded step (on the CPU the stand-in of
+    ``tests.graph_stand_in``, which runs the body untraced at each replay):
+    the key's first step is eager with its three stages; each later step
+    records one ``step.replay`` under its ``step``, and the replayed steps
+    no stage."""
+    cfg, grid, pool = mapped
+    s = trainer.TrainSettings.from_config(cfg, grid.levels, feature_update="pallas",
+                                          n_used=trainer.used_rows_for(grid))
+    params = trainer.init_params(cfg, grid, torch.Generator("cpu").manual_seed(3))
+    params[FEATURES] = [f.clone() for f in grid.features]
+    dev, n = trainer.pool_to_device(pool, len(pool), device="cpu")
+    pre = trainer.precompute_pool_lookups(grid.tables, dev["coord"], grid.levels,
+                                          [f.shape[0] for f in grid.features])
+    profiling.tracing(True)
+    trainer.train_chunk(params, init_opt_state(params), grid.tables, dev, n, 0,
+                        torch.Generator("cpu").manual_seed(11), s, 4, pre_lookups=pre)
+    profiling.tracing(False)
+    assert trainer.GRAPH_COUNTS == {"eager": 1, "captured": 1, "replayed": 3}
+    got = profiling.spans()
+    steps = [sp for sp in got if sp.name == "step"]
+    assert len(steps) == 4
+
+    def within(k):
+        return [sp.name for sp in got if sp.parent == "step"
+                and steps[k].t0_ns <= sp.t0_ns <= sp.t1_ns <= steps[k].t1_ns]
+
+    assert within(0) == list(STAGES)
+    assert within(1)[-1] == "step.replay"  # the recording step also replays
+    assert within(2) == within(3) == ["step.replay"]
+    assert [sp.name for sp in got].count("step.replay") == 3

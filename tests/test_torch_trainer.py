@@ -48,6 +48,7 @@ from shine_mapping_tpu_torch.ops.hashgrid import HashGridHost
 from shine_mapping_tpu_torch.train import trainer
 from shine_mapping_tpu_torch.train.optimizer import FEATURES, init_opt_state
 from tests import synth
+from tests.graph_stand_in import stand_in_graph  # noqa: F401  (a fixture)
 
 STEPS = 30
 BS = 256
@@ -665,3 +666,173 @@ def test_interop_carries_bf16_tables_bit_for_bit():
     back = interop._table_to_numpy(t)
     assert back.dtype == a.dtype
     np.testing.assert_array_equal(back.view(np.int16), a.view(np.int16))
+
+
+# ------------------------------------------------------------------ the recorded iid step
+# On the card train_chunk takes its iid steps through one CUDA graph
+# (trainer.step_graph_ok); the CPU runs every step eagerly.  Here the
+# predicate, the key, the CPU's eager steps and, with a stand-in for the
+# recording (``tests.graph_stand_in``), the graph path's control flow
+# and arithmetic; tests/test_torch_cuda.py holds the graph on the card bit
+# for bit against the eager steps.
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CELL_CONFIGS = ("config/rgbd/rgbd_batch.yaml", "config/config_icra2023/maicity_batch.yaml")
+
+
+def _cell_settings(path):
+    cfg = SHINEConfig().load(os.path.join(_ROOT, path))
+    top = cfg.tree_level_world
+    return trainer.TrainSettings.from_config(
+        cfg, tuple(range(top - cfg.tree_level_feat + 1, top + 1)))
+
+
+@pytest.mark.parametrize("path", CELL_CONFIGS, ids=["room", "street"])
+def test_step_graph_ok_takes_the_cells_settings(path):
+    """The benchmark's cells (the batch CLI's single-card path on iid
+    batches with pool lookups) take the recorded step."""
+    s = _cell_settings(path)
+    assert trainer.step_graph_ok(s, torch.device("cuda"), pre_lookups=())
+    assert trainer.step_graph_ok(dataclasses_replace(s, fuse_update_levels=True), "cuda",
+                                 pre_lookups=())
+
+
+@pytest.mark.parametrize("case", [
+    "cpu", "no_pre_lookups", "group", "batch_windows", "batch_indices", "continual_reg",
+    "consistency", "ray_loss", "sparse", "dense", "sgd"])
+def test_step_graph_ok_keeps_the_other_paths_eager(case):
+    s = _cell_settings(CELL_CONFIGS[0])
+    kw = dict(pre_lookups=())
+    device = "cuda"
+    if case == "cpu":
+        device = "cpu"
+    elif case == "no_pre_lookups":
+        kw["pre_lookups"] = None
+    elif case in ("group", "batch_windows"):
+        kw[case] = object()
+    elif case == "batch_indices":
+        kw[case] = torch.zeros((1, s.bs), dtype=torch.int64)
+    else:
+        s = dataclasses_replace(s, **{
+            "continual_reg": dict(continual_reg_on=True), "consistency":
+            dict(consistency_loss_on=True), "ray_loss": dict(ray_loss=True),
+            "sparse": dict(feature_update="sparse"), "dense": dict(feature_update="dense"),
+            "sgd": dict(opt_adam=False)}[case])
+    assert not trainer.step_graph_ok(s, device, **kw)
+
+
+def _graph_setup(worlds, **kw):
+    """The torch world's settings (``feature_update: pallas``), pool and
+    lookups, and a fresh state with tables of its own."""
+    s, dev, n, _, pre = _port_setup(worlds, **kw)
+    cfg_t, grid_t, _ = worlds["torch"]
+    params = trainer.init_params(cfg_t, grid_t, torch.Generator().manual_seed(0))
+    params[FEATURES] = [f.clone() for f in params[FEATURES]]
+    return s, dev, n, pre, params, init_opt_state(params)
+
+
+@pytest.mark.parametrize("change", ["table", "n_valid", "zero_lr"])
+def test_step_graph_key_changes_with_what_the_graph_bakes_in(worlds, change):
+    """The key of the same inputs is equal; a table reallocated, another
+    ``n_valid`` or a leaf whose lr became 0 give another key."""
+    s, dev, n, pre, params, opt = _graph_setup(worlds)
+    key = trainer.step_graph_key(params, opt, dev, pre, s, n)
+    assert trainer.step_graph_key(params, opt, dev, pre, s, n) == key
+    zero = frozenset()
+    if change == "table":
+        params[FEATURES][1] = params[FEATURES][1].clone()
+    elif change == "n_valid":
+        n -= 1
+    else:
+        zero = frozenset({"geo.lout.weight"})
+    assert trainer.step_graph_key(params, opt, dev, pre, s, n, zero) != key
+
+
+def _chunks(worlds, splits, adam_eps=1e-15, fresh_graph=False):
+    """The iid steps of ``splits`` chunks from one start (one generator
+    across them); ``fresh_graph``: the graph cleared before each chunk, so
+    that every step is a first sighting."""
+    s, dev, n, pre, params, opt = _graph_setup(worlds, adam_eps=adam_eps)
+    gen, step, losses = torch.Generator().manual_seed(5), 0, []
+    for k in splits:
+        if fresh_graph:
+            opt.graph = None
+        params, opt, aux = trainer.train_chunk(params, opt, worlds["torch"][1].tables, dev, n,
+                                               step, gen, s, k, pre_lookups=pre)
+        losses.append(aux["last"]["total_loss"])
+        step += k
+    return params, opt, losses
+
+
+def _state(params, opt):
+    out = [p for _, p in sorted(trainer.dense_params(params).items())] + list(params[FEATURES])
+    for st in (opt.m, opt.v):
+        out += [st[k] for k in sorted(k for k in st if k != FEATURES)] + list(st[FEATURES])
+    return out
+
+
+def test_cpu_train_chunk_runs_every_step_eagerly(worlds):
+    """CPU tensors: the settings the card records run eagerly, keep no
+    graph, and a chunk is bit for bit its steps one chunk each."""
+    trainer.reset_graph_counts()
+    p1, o1, _ = _chunks(worlds, [4])
+    assert trainer.GRAPH_COUNTS == {"eager": 4, "captured": 0, "replayed": 0}
+    assert o1.graph is None and o1.step == 4
+    p2, o2, _ = _chunks(worlds, [1, 1, 1, 1])
+    for a, b in zip(_state(p1, o1), _state(p2, o2)):
+        assert torch.equal(a, b)
+
+
+def test_graph_path_counts_and_follows_the_eager_steps(worlds, stand_in_graph):
+    """Three one-step chunks: the key's first step eager, the second
+    records and replays, the third replays; a reallocated table starts a
+    new key (eager, then recorded).  On the CPU the device's Adam divides
+    by a reciprocal, so the steps agree with the eager ones (every step a
+    first sighting) at rounding, adam_eps 1e-3."""
+    p, o, losses = _chunks(worlds, [1, 1, 1], adam_eps=1e-3)
+    assert trainer.GRAPH_COUNTS == {"eager": 1, "captured": 1, "replayed": 2}
+    assert o.graph is not None and o.graph.replay is not None and o.step == 3
+    trainer.reset_graph_counts()
+    pe, oe, losses_e = _chunks(worlds, [1, 1, 1], adam_eps=1e-3, fresh_graph=True)
+    assert trainer.GRAPH_COUNTS == {"eager": 3, "captured": 0, "replayed": 0}
+    assert losses[0] == losses_e[0]  # the same eager first step
+    for a, b in zip(losses[1:], losses_e[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    for a, b in zip(_state(p, o), _state(pe, oe)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    s, dev, n, pre, _, _ = _graph_setup(worlds, adam_eps=1e-3)
+    p[FEATURES][0] = p[FEATURES][0].clone()
+    trainer.reset_graph_counts()
+    tables = worlds["torch"][1].tables
+    for k in range(3):
+        p, o, _ = trainer.train_chunk(p, o, tables, dev, n, 3 + k, torch.Generator(), s, 1,
+                                      pre_lookups=pre)
+    assert trainer.GRAPH_COUNTS == {"eager": 1, "captured": 1, "replayed": 2}
+    assert o.step == 6
+
+
+def test_graph_is_released_by_a_path_it_does_not_take(worlds, stand_in_graph):
+    s, dev, n, pre, params, opt = _graph_setup(worlds)
+    tables = worlds["torch"][1].tables
+    params, opt, _ = trainer.train_chunk(params, opt, tables, dev, n, 0, torch.Generator(), s, 2,
+                                         pre_lookups=pre)
+    assert opt.graph is not None and opt.graph.replay is not None
+    params, opt, _ = trainer.train_chunk(params, opt, tables, dev, n, 2, torch.Generator(), s, 1)
+    assert opt.graph is None
+    assert trainer.GRAPH_COUNTS == {"eager": 2, "captured": 1, "replayed": 1}
+
+
+def test_adam_scalars_are_the_eager_divisors():
+    """The device Adam's numbers: float32 lr * scale and the bias
+    corrections' float64 reciprocals rounded to float32, row by step (at
+    step 2 the second differs from the float32 reciprocal of the float32
+    correction in the last bit)."""
+    from shine_mapping_tpu_torch.train.optimizer import adam_scalars, bias_corrections
+
+    rows = adam_scalars([0.01, 0.001], {"a": 1.0, "b": 0.0, "c": 0.5}, ["a", "b", "c"], [1, 2])
+    assert rows.dtype == np.float32 and rows.shape == (2, 5)
+    for r, lr, t in zip(rows, (0.01, 0.001), (1, 2)):
+        assert list(r[:3]) == [np.float32(lr), 0.0, np.float32(lr * 0.5)]
+        for got, bc in zip(r[3:], bias_corrections(t)):
+            assert got == np.float32(1.0 / bc)
+    assert rows[1, 4] != np.float32(1.0) / np.float32(bias_corrections(2)[1])
