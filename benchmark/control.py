@@ -30,24 +30,25 @@ def readings(workload: str, seed: int, device: str = "cuda", overrides=None) -> 
     import harness
 
     cell = harness.Cell(workload, overrides)
+    batch = harness.load_module("drivers", "batch")
     tmp = tempfile.mkdtemp(prefix="shine-control-")
     try:
-        prog = harness.Program(cell, seed, device, tmp)
-        checked = harness.checked_steps(prog)
+        prog = batch.Program(cell, seed, device, tmp)
+        checked = batch.checked_steps(prog)
         prog.free()
-        ref = harness.reference_readings(prog)
+        ref = batch.reference_readings(prog)
         out = {"seed": seed,
-               "program": harness.gaps(checked, ref),
-               "control_tf32": harness.gaps(harness.reference_readings(prog, tf32=True), ref),
-               "fault_half_batch": harness.gaps(
-                   harness.reference_readings(prog, half_batch=True), ref)}
-        out["program"].update(harness.data_readings(prog))
+               "program": batch.gaps(checked, ref),
+               "control_tf32": batch.gaps(batch.reference_readings(prog, tf32=True), ref),
+               "fault_half_batch": batch.gaps(
+                   batch.reference_readings(prog, half_batch=True), ref)}
+        out["program"].update(batch.data_readings(prog))
         # the data stage's control: the pool's coordinates and labels held in
         # bfloat16, one precision below its float32
         pool = prog.dataset.pool
         kept = pool.coord, pool.sdf_label
         pool.coord, pool.sdf_label = (_bf16(a) for a in kept)
-        out["control_bf16_pool"] = harness.data_readings(prog)
+        out["control_bf16_pool"] = batch.data_readings(prog)
         pool.coord, pool.sdf_label = kept
         return out
     finally:

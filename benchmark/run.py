@@ -3,10 +3,12 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Writes the cell's scans from the seed under the temporary directory, sets
-the program up, checks its first three steps, trains for ``--seconds`` of
-whole chunks, with ``--trace 1`` profiles a further stretch, compares with
-the plain reference and prints, as the last line of standard output, one
+Sets the program up through the cell's driver (``drivers/<driver>.py``;
+the batch driver writes the cell's scans from the seed under the temporary
+directory), checks its first steps, trains for ``--seconds`` of whole units
+(the batch driver's are chunks), with ``--trace 1`` runs a further stretch
+with the program's spans on and one under the profiler, compares with the
+plain reference and prints, as the last line of standard output, one
 JSON object: ``correct``, ``attempted`` (steps in the window), ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and

@@ -1,10 +1,16 @@
-"""Small sizes of the cells for the CPU tests (the card runs them whole)."""
+"""Small sizes of the cells for the CPU tests (the card runs them whole):
+``cpu_sizes/<cell>.json`` each, ``{"traffic": ..., "config": ...}`` merged
+over the cell's own files (``harness.Cell``'s overrides)."""
 
-OVERRIDES = {
-    "maicity_batch.street": {"traffic": {"frames": 3, "beams": 16, "columns": 128},
-                             "config": {"optimizer": {"batch_size": 256},
-                                        "tpu": {"scan_chunk": 5}}},
-    "rgbd_batch.room": {"traffic": {"frames": 3, "width": 64, "height": 48, "focal": 55.4},
-                        "config": {"optimizer": {"batch_size": 256},
-                                   "tpu": {"scan_chunk": 5}}},
-}
+import json
+import os
+
+SIZES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpu_sizes")
+
+
+def _read(name):
+    with open(os.path.join(SIZES, name)) as f:
+        return json.load(f)
+
+
+OVERRIDES = {f[:-len(".json")]: _read(f) for f in sorted(os.listdir(SIZES)) if f.endswith(".json")}

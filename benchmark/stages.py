@@ -11,8 +11,8 @@ where it is read and off where the window is timed:
    (``setup_spans``, seconds; ``data.prep`` over every frame and worker
    thread) beside the data phase's host clock, then the data phase again
    on the main thread alone (``setup_spans_sequential``);
-2. the warm chunk and a window of whole chunks for ``--seconds``, tracing
-   off (``window_ms_per_step``);
+2. the batch driver's checked steps, warm chunk and a window of whole
+   chunks for ``--seconds``, tracing off (``window_ms_per_step``);
 3. ``--steps`` steps in one call with tracing on and no profiler, ended by a
    synchronise: each stage's summed span time a step (``stages``) and the
    stretch's own ms a step, the on-cost against the window;
@@ -57,15 +57,6 @@ import harness  # noqa: E402
 
 STAGE_PREFIX = "step."
 OUTSIDE = "outside"
-
-
-def summed(spans, prefix: str) -> dict:
-    """Seconds by span name over the spans whose name starts with ``prefix``."""
-    out = {}
-    for s in spans:
-        if s.name.startswith(prefix):
-            out[s.name] = out.get(s.name, 0.0) + (s.t1_ns - s.t0_ns) / 1e9
-    return out
 
 
 def stage_of(events: list):
@@ -164,20 +155,13 @@ def sequential_data_phase(cfg) -> tuple:
     core the pipelined phase's spans hold each other's time; these do not."""
     from shine_mapping_tpu_torch.cli.common import build_grid
     from shine_mapping_tpu_torch.data.dataset import LiDARDataset
-    from shine_mapping_tpu_torch.utils import profiling
 
-    profiling.clear_spans()
-    was = profiling.tracing(True)
-    try:
+    with harness.spans_of(True, "data.") as sp:
         ds = LiDARDataset(cfg, build_grid(cfg))
         t0 = time.perf_counter()
         for f in ds.frame_ids():
             ds.process_frame(f)
         dt = time.perf_counter() - t0
-    finally:
-        profiling.tracing(was)
-    sp = summed(profiling.spans(), "data.")
-    profiling.clear_spans()
     return sp, dt
 
 
@@ -186,39 +170,29 @@ def run(workload: str, seed: int, seconds: float = 20.0, steps: int = 20, rounds
     from shine_mapping_tpu_torch.utils import profiling
 
     cell = harness.Cell(workload, overrides)
+    batch = harness.load_module("drivers", "batch")
     tmp = tempfile.mkdtemp(prefix="shine-stages-")
     out = {"workload": workload, "seed": seed}
     try:
-        profiling.clear_spans()
-        was = profiling.tracing(True)
-        try:
-            prog = harness.Program(cell, seed, device, tmp)
-        finally:
-            profiling.tracing(was)
-        sp = profiling.spans()
-        out["setup_spans"] = summed(sp, "data.")
-        out["frames"] = sum(s.name == "data.prep" for s in sp)
+        with harness.spans_of(True, "data.") as sp:
+            prog = batch.setup(cell, seed, device, tmp)
+        out["setup_spans"] = sp
+        out["frames"] = len(prog.dataset.frame_ids())
         out["timers"] = dict(prog.timers)
         out["setup_spans_sequential"], out["data_s_sequential"] = sequential_data_phase(prog.cfg)
 
-        chunk = int(prog.cfg.scan_chunk)
-        for _ in range(3):  # the checked steps' calls
-            prog.chunk(1)
-        timed_chunk(prog, chunk, False)  # warm chunk
+        batch.check(prog)
+        batch.warm(prog)
         t0, n = time.perf_counter(), 0
-        while True:
-            float(prog.chunk(chunk)["mean"]["total_loss"])
-            n += chunk
-            if time.perf_counter() - t0 >= seconds:
-                break
+        while time.perf_counter() - t0 < seconds or n == 0:
+            n += batch.unit(prog)[0]
         harness._sync(device)
         out["window_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / n
+        chunk = int(prog.cfg.scan_chunk)
 
-        profiling.clear_spans()
-        dt = timed_chunk(prog, steps, True)
-        sp = profiling.spans()
-        out["stages"] = {k: 1e3 * v / steps for k, v in summed(sp, "step").items()}
-        out["stages"].update({k: 1e3 * v for k, v in summed(sp, "chunk").items()})
+        with harness.spans_of(True) as sp:
+            dt = timed_chunk(prog, steps, True)
+        out["stages"] = {k: 1e3 * v / (1 if k == "chunk" else steps) for k, v in sp.items()}
         out["spans_ms_per_step"] = 1e3 * dt / steps
 
         ab = {"off": [], "on": []}

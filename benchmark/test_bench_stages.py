@@ -1,5 +1,6 @@
-"""The stage reader (``stages.by_stage``) on hand-made Chrome traces, and
-``stages.run`` at a small size on the CPU."""
+"""The stage reader (``stages.by_stage``) on hand-made Chrome traces, the
+spans summed by name (``harness.summed``), and ``stages.run`` at a small
+size on the CPU."""
 
 import pytest
 
@@ -75,7 +76,8 @@ def test_spans_are_summed_by_name():
 
     sp = [Span("data.prep", 1, 0, 2_000_000_000, None), Span("data.prep", 2, 0, 10**9, None),
           Span("data.wait", 1, 5, 10**9 + 5, None), Span("step", 1, 0, 10**9, None)]
-    assert stages.summed(sp, "data.") == {"data.prep": 3.0, "data.wait": 1.0}
+    assert harness.summed(sp, "data.") == {"data.prep": 3.0, "data.wait": 1.0}
+    assert harness.summed(sp) == {"data.prep": 3.0, "data.wait": 1.0, "step": 1.0}
 
 
 def test_run_reads_every_stage_at_a_small_size():
