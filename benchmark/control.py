@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """The readings that the limits of ``correct`` are set from, on the card at
-a cell's own size, one set-up a seed, all seeds in one process:
-
-* the program against the plain reference (the lower readings);
-* the control: the reference computed with TF32 matrix products, one
-  precision below the configuration's float32, in the program's place;
-* a planted fault: the reference with half of each batch left out, the
-  mean taken over the rest, in the program's place.
+a cell's own size, one set-up a seed, all seeds in one process, through the
+cell's driver (``drivers/<driver>.py``): its ``setup``, ``check`` and
+``free``, then its ``control``, which gives each side's numbers: the
+program against the plain reference (``program``, the lower readings), and
+each control and planted fault in the program's place (the upper readings;
+the batch driver's are the reference with TF32 products, with half of each
+batch, and over a bfloat16 pool).
 
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 [--out FILE]
 
 Prints one JSON line a seed and a summary: for each number the largest
-program reading, and the smallest reading of the control and of the fault.
+program reading, and the smallest reading of each other side that gives it.
 """
 
 import argparse
@@ -30,44 +30,25 @@ def readings(workload: str, seed: int, device: str = "cuda", overrides=None) -> 
     import harness
 
     cell = harness.Cell(workload, overrides)
-    batch = harness.load_module("drivers", "batch")
+    drv = cell.driver
+    if not hasattr(drv, "control"):
+        raise SystemExit(f"{workload}: its driver has no control function")
     tmp = tempfile.mkdtemp(prefix="shine-control-")
     try:
-        prog = batch.Program(cell, seed, device, tmp)
-        checked = batch.checked_steps(prog)
-        prog.free()
-        ref = batch.reference_readings(prog)
-        out = {"seed": seed,
-               "program": batch.gaps(checked, ref),
-               "control_tf32": batch.gaps(batch.reference_readings(prog, tf32=True), ref),
-               "fault_half_batch": batch.gaps(
-                   batch.reference_readings(prog, half_batch=True), ref)}
-        out["program"].update(batch.data_readings(prog))
-        # the data stage's control: the pool's coordinates and labels held in
-        # bfloat16, one precision below its float32
-        pool = prog.dataset.pool
-        kept = pool.coord, pool.sdf_label
-        pool.coord, pool.sdf_label = (_bf16(a) for a in kept)
-        out["control_bf16_pool"] = batch.data_readings(prog)
-        pool.coord, pool.sdf_label = kept
-        return out
+        prog = drv.setup(cell, seed, device, tmp)
+        checked = drv.check(prog)
+        drv.free(prog)
+        return {"seed": seed, **drv.control(prog, checked)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _bf16(a):
-    import torch
-
-    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
-
-
 def summary(rows: list) -> dict:
-    names = rows[0]["program"].keys()
     out = {}
-    for k in names:
+    for k in rows[0]["program"]:
         out[k] = {"program_max": max(r["program"][k] for r in rows)}
-        for side in ("control_tf32", "fault_half_batch", "control_bf16_pool"):
-            if k in rows[0][side]:
+        for side in rows[0]:
+            if side not in ("seed", "program") and k in rows[0][side]:
                 out[k][side + "_min"] = min(r[side][k] for r in rows)
     return out
 

@@ -7,7 +7,11 @@ scan, ``trainer.init_params``, ``TrainSettings.from_config``,
 
 The functions ``harness.run_cell`` calls, as every driver gives them:
 ``setup``, ``check``, ``warm``, ``unit``, ``stretch``, ``work``, ``free``
-and ``compare``.
+and ``compare``; and the optional ones: ``control`` (``control.py``'s
+readings: the program, the TF32 control, the half-batch fault, the data
+stage's bfloat16 control), ``sequential_data`` and ``ab_steps``
+(``stages.py``'s).  A unit is a chunk of ``scan_chunk`` steps, and so is
+``stretch(prog, n)`` a chunk of ``n``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import time
 
 import numpy as np
 
-from harness import _sync, load_module, make_config
+from harness import _sync, load_module, make_config, spans_of
 
 B1 = 0.9
 
@@ -298,3 +302,54 @@ def compare(prog: Program, checked: dict) -> dict:
     numbers.update(data_readings(prog))
     print(f"pool {len(prog.dataset.pool)} samples, device pool {prog.n_valid}", file=sys.stderr)
     return numbers
+
+
+def control(prog: Program, checked: dict) -> dict:
+    """The readings the limits are set from, on a freed program: the
+    program against the plain reference (``program``, the lower readings);
+    the control, the reference computed with TF32 matrix products, one
+    precision below the configuration's float32, in the program's place
+    (``control_tf32``); a planted fault, the reference with half of each
+    batch left out, the mean taken over the rest (``fault_half_batch``);
+    and the data stage's control, the pool's coordinates and labels held in
+    bfloat16, one precision below its float32 (``control_bf16_pool``)."""
+    ref = reference_readings(prog)
+    out = {"program": gaps(checked, ref),
+           "control_tf32": gaps(reference_readings(prog, tf32=True), ref),
+           "fault_half_batch": gaps(reference_readings(prog, half_batch=True), ref)}
+    out["program"].update(data_readings(prog))
+    pool = prog.dataset.pool
+    kept = pool.coord, pool.sdf_label
+    pool.coord, pool.sdf_label = (_bf16(a) for a in kept)
+    out["control_bf16_pool"] = data_readings(prog)
+    pool.coord, pool.sdf_label = kept
+    return out
+
+
+def _bf16(a):
+    import torch
+
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def sequential_data(prog: Program) -> dict:
+    """The data phase again on the main thread alone (``process_frame``),
+    tracing on: the frames, the ``data.*`` spans summed by name and the
+    phase's host seconds.  On one core the pipelined phase's spans hold each
+    other's time; these do not."""
+    from shine_mapping_tpu_torch.cli.common import build_grid
+    from shine_mapping_tpu_torch.data.dataset import LiDARDataset
+
+    with spans_of(True, "data.") as sp:
+        ds = LiDARDataset(prog.cfg, build_grid(prog.cfg))
+        t0 = time.perf_counter()
+        for f in ds.frame_ids():
+            ds.process_frame(f)
+        dt = time.perf_counter() - t0
+    return {"frames": len(ds.frame_ids()), "setup_spans_sequential": sp, "data_s_sequential": dt}
+
+
+def ab_steps(prog: Program) -> int:
+    """The steps of one of ``stages.py``'s tracing off / on rounds: a unit's
+    chunk."""
+    return int(prog.cfg.scan_chunk)

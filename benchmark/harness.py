@@ -17,12 +17,32 @@ functions over the program it sets up:
 * ``check(prog)``: the program's readings of its checked first steps;
 * ``warm(prog)``: the window's shapes, once;
 * ``unit(prog)``: one timed unit, read back: ``(steps, samples)``, or
-  ``None`` where the traffic has run out;
+  ``None`` where the traffic has run out (a batch driver's unit is a chunk
+  of steps, an incremental driver's a whole frame: its scan processed,
+  then its steps);
 * ``stretch(prog, n)``: ``n`` steps in one call, read back (the traced
-  stretches);
+  stretches; where a unit is a frame, ``n`` steps of the current frame's
+  training, with no frame processing);
 * ``work(prog)``: one step's work for the roofline shares, or ``None``;
 * ``free(prog)``: the program's device state released;
 * ``compare(prog, checked)``: the numbers set beside the cell's limits.
+
+and, where it has them:
+
+* ``control(prog, checked)``: ``control.py``'s readings once ``free`` has
+  run, ``{side: {number: reading}}``: ``program`` (``compare``'s numbers,
+  the lower readings of the limits), and the controls and planted faults
+  that the limits' upper readings come from (the batch driver's
+  ``control_tf32``, ``fault_half_batch`` and ``control_bf16_pool``);
+* ``sequential_data(prog)`` and ``ab_steps(prog)``: ``stages.py``'s data
+  phase again on the main thread alone, and the steps of one of its
+  tracing off / on rounds; ``stages.py`` skips each part whose function
+  the driver lacks.
+
+``run_cell`` hands each metric's reader one record: ``timers``,
+``setup_s``, ``window_s``, ``samples``, ``step_s``, ``unit_s`` (each timed
+unit's host seconds, in order), ``peak_bytes`` and ``device_kind``; in a
+traced run also ``spans``, ``trace`` and ``work``.
 """
 
 from __future__ import annotations
@@ -227,6 +247,29 @@ def read_trace(events: list, steps: int, window_s: float) -> dict:
                                                                   key=lambda kv: -kv[1])[:10]]}}
 
 
+def window(drv, prog, seconds: float, device: str) -> dict:
+    """The timed window: whole units until ``seconds`` have passed or the
+    traffic has run out, each read back, then a synchronise.  ``steps`` and
+    ``samples`` summed, ``marks`` (each unit's end, host seconds from the
+    window's start), ``cpu_marks`` (the same on the dispatching thread's CPU
+    clock) and ``window_s``."""
+    steps, samples, marks, cpu_marks = 0, 0, [], []
+    c0, t0 = time.thread_time(), time.perf_counter()
+    while True:
+        done = drv.unit(prog)
+        if done is None:
+            break
+        steps += done[0]
+        samples += done[1]
+        marks.append(time.perf_counter() - t0)
+        cpu_marks.append(time.thread_time() - c0)
+        if marks[-1] >= seconds:
+            break
+    _sync(device)
+    return {"steps": steps, "samples": samples, "marks": marks, "cpu_marks": cpu_marks,
+            "window_s": time.perf_counter() - t0}
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
              overrides: dict | None = None, t_start: float | None = None,
              trace_steps: int = 20, span_rounds: int = 100, driver=None) -> dict:
@@ -254,25 +297,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         _sync(device)
         prog.timers["warm"] = time.perf_counter() - t
         rec = {"setup_s": time.time() - t_start, "timers": prog.timers}
-        # the window: whole units until --seconds have passed or the traffic
-        # has run out, each read back; the dispatching thread's CPU seconds
-        # beside the host clock, on standard error
-        steps, samples, marks, cpu_marks = 0, 0, [], []
-        c0, t0 = time.thread_time(), time.perf_counter()
-        while True:
-            done = drv.unit(prog)
-            if done is None:
-                break
-            steps += done[0]
-            samples += done[1]
-            marks.append(time.perf_counter() - t0)
-            cpu_marks.append(time.thread_time() - c0)
-            if marks[-1] >= seconds:
-                break
-        _sync(device)
-        rec["window_s"] = time.perf_counter() - t0
-        rec["samples"] = samples
+        win = window(drv, prog, seconds, device)
+        steps, marks, cpu_marks = win["steps"], win["marks"], win["cpu_marks"]
+        rec["window_s"] = win["window_s"]
+        rec["samples"] = win["samples"]
         rec["step_s"] = rec["window_s"] / steps
+        rec["unit_s"] = [b - a for a, b in zip([0.0] + marks, marks)]
         cuda = device.startswith("cuda")
         rec["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
         rec["device_kind"] = torch.cuda.get_device_name(0) if cuda else "cpu"

@@ -5,12 +5,16 @@ over the cell's own files (``harness.Cell``'s overrides)."""
 import json
 import os
 
-SIZES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpu_sizes")
+
+def overrides(here: str = os.path.dirname(os.path.abspath(__file__))) -> dict:
+    """``{cell: sizes}`` of every ``<here>/cpu_sizes/*.json``."""
+    sizes = os.path.join(here, "cpu_sizes")
+    out = {}
+    for f in sorted(os.listdir(sizes)):
+        if f.endswith(".json"):
+            with open(os.path.join(sizes, f)) as fh:
+                out[f[:-len(".json")]] = json.load(fh)
+    return out
 
 
-def _read(name):
-    with open(os.path.join(SIZES, name)) as f:
-        return json.load(f)
-
-
-OVERRIDES = {f[:-len(".json")]: _read(f) for f in sorted(os.listdir(SIZES)) if f.endswith(".json")}
+OVERRIDES = overrides()

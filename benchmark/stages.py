@@ -4,30 +4,38 @@
     python3 benchmark/stages.py --workload <cell> --seed <n> [--seconds 20]
                                 [--steps 20] [--rounds 4]
 
-One run on the card, as ``run.py``'s set-up and window, with tracing on
-where it is read and off where the window is timed:
+One run on the card through the cell's driver (``drivers/<driver>.py``), as
+``run.py``'s set-up and window, with tracing on where it is read and off
+where the window is timed:
 
-1. set-up with tracing on: the data phase's ``data.*`` spans summed by name
-   (``setup_spans``, seconds; ``data.prep`` over every frame and worker
-   thread) beside the data phase's host clock, then the data phase again
-   on the main thread alone (``setup_spans_sequential``);
-2. the batch driver's checked steps, warm chunk and a window of whole
-   chunks for ``--seconds``, tracing off (``window_ms_per_step``);
-3. ``--steps`` steps in one call with tracing on and no profiler, ended by a
-   synchronise: each stage's summed span time a step (``stages``) and the
-   stretch's own ms a step, the on-cost against the window;
-4. ``--rounds`` pairs of whole chunks with tracing off and on, in turns
-   (``ab``): the on-cost again, on chunks the window's size;
-5. ``--steps`` steps in one ``train_chunk`` call under ``torch.profiler``
+1. the driver's set-up with tracing on: the data phase's ``data.*`` spans
+   summed by name (``setup_spans``, seconds; ``data.prep`` over every frame
+   and worker thread) beside the set-up's timers; then, where the driver
+   has ``sequential_data``, the data phase again on the main thread alone
+   (``frames``, ``setup_spans_sequential``, ``data_s_sequential``);
+2. the driver's checked steps, warm-up and a window of whole units for
+   ``--seconds`` (``harness.window``), tracing off (``window_ms_per_step``);
+3. ``--steps`` steps in one ``stretch`` call with tracing on and no
+   profiler, ended by a synchronise: each stage's summed span time a step
+   (``stages``) and the stretch's own ms a step, the on-cost against the
+   window;
+4. where the driver has ``ab_steps``, ``--rounds`` pairs of stretches of
+   that many steps (the batch driver's: a unit's chunk) with tracing off
+   and on, in turns (``ab``): the on-cost again, on stretches the window's
+   size;
+5. ``--steps`` steps in one ``stretch`` call under ``torch.profiler``
    with tracing on (:func:`by_stage`): each launch call given to the
    ``step.*`` interval that holds it, on any thread (autograd runs the
    backward's launches on its own thread), ``outside`` the rest; each idle
    gap before a device operation given to the stage of the operation's
    launching ``cpu_op`` (by ``External id``; the profiler roughly doubles
-   the host's time, so these gaps are shares, not times); then one chunk
-   with tracing off (``after_profile_ms_per_step``).
+   the host's time, so these gaps are shares, not times); then one stretch
+   of ``ab_steps`` (else ``--steps``) steps with tracing off
+   (``after_profile_ms_per_step``).
 
-Prints one JSON object as its last line.  ``run.py`` runs none of this.
+``skipped`` names the parts the driver has no function for
+(``sequential_data``, ``ab_rounds``).  Prints one JSON object as its last
+line.  ``run.py`` runs none of this.
 """
 
 from __future__ import annotations
@@ -106,26 +114,17 @@ def by_stage(events: list) -> dict:
     return {"launches": launches, "launches_by_stage": by_launch, "idle_by_stage": idle}
 
 
-def profiled(prog, steps: int, tmp: str):
-    """``steps`` steps in one call under ``torch.profiler`` with tracing on:
+def profiled(drv, prog, steps: int, device: str, tmp: str):
+    """:func:`timed`'s stretch with tracing on, under ``torch.profiler``:
     (the Chrome trace's events, the stretch's host seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from shine_mapping_tpu_torch.utils import profiling
-
     acts = [ProfilerActivity.CPU]
-    if prog.device.startswith("cuda"):
+    if device.startswith("cuda"):
         acts.append(ProfilerActivity.CUDA)
-    harness._sync(prog.device)
-    was = profiling.tracing(True)
-    try:
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            float(prog.chunk(steps)["mean"]["total_loss"])
-            harness._sync(prog.device)
-            window_s = time.perf_counter() - t0
-    finally:
-        profiling.tracing(was)
+    harness._sync(device)
+    with profile(activities=acts) as prof:
+        window_s = timed(drv, prog, steps, True, device)
     path = os.path.join(tmp, "stages_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -134,35 +133,19 @@ def profiled(prog, steps: int, tmp: str):
     return events, window_s
 
 
-def timed_chunk(prog, steps: int, on: bool) -> float:
-    """Host seconds of one ``train_chunk`` call, ended by a synchronise,
-    with tracing ``on`` or off (no profiler)."""
+def timed(drv, prog, steps: int, on: bool, device: str) -> float:
+    """Host seconds of one ``stretch`` call of ``steps`` steps, ended by a
+    synchronise, with tracing ``on`` or off (no profiler)."""
     from shine_mapping_tpu_torch.utils import profiling
 
     was = profiling.tracing(on)
     try:
         t0 = time.perf_counter()
-        float(prog.chunk(steps)["mean"]["total_loss"])
-        harness._sync(prog.device)
+        drv.stretch(prog, steps)
+        harness._sync(device)
         return time.perf_counter() - t0
     finally:
         profiling.tracing(was)
-
-
-def sequential_data_phase(cfg) -> tuple:
-    """The data phase again on the main thread alone (``process_frame``),
-    tracing on: (its ``data.*`` spans summed, its host seconds).  On one
-    core the pipelined phase's spans hold each other's time; these do not."""
-    from shine_mapping_tpu_torch.cli.common import build_grid
-    from shine_mapping_tpu_torch.data.dataset import LiDARDataset
-
-    with harness.spans_of(True, "data.") as sp:
-        ds = LiDARDataset(cfg, build_grid(cfg))
-        t0 = time.perf_counter()
-        for f in ds.frame_ids():
-            ds.process_frame(f)
-        dt = time.perf_counter() - t0
-    return sp, dt
 
 
 def run(workload: str, seed: int, seconds: float = 20.0, steps: int = 20, rounds: int = 4,
@@ -170,42 +153,46 @@ def run(workload: str, seed: int, seconds: float = 20.0, steps: int = 20, rounds
     from shine_mapping_tpu_torch.utils import profiling
 
     cell = harness.Cell(workload, overrides)
-    batch = harness.load_module("drivers", "batch")
+    drv = cell.driver
     tmp = tempfile.mkdtemp(prefix="shine-stages-")
-    out = {"workload": workload, "seed": seed}
+    out = {"workload": workload, "seed": seed, "skipped": []}
     try:
         with harness.spans_of(True, "data.") as sp:
-            prog = batch.setup(cell, seed, device, tmp)
+            prog = drv.setup(cell, seed, device, tmp)
         out["setup_spans"] = sp
-        out["frames"] = len(prog.dataset.frame_ids())
         out["timers"] = dict(prog.timers)
-        out["setup_spans_sequential"], out["data_s_sequential"] = sequential_data_phase(prog.cfg)
+        if hasattr(drv, "sequential_data"):
+            out.update(drv.sequential_data(prog))
+        else:
+            out["skipped"].append("sequential_data")
 
-        batch.check(prog)
-        batch.warm(prog)
-        t0, n = time.perf_counter(), 0
-        while time.perf_counter() - t0 < seconds or n == 0:
-            n += batch.unit(prog)[0]
-        harness._sync(device)
-        out["window_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / n
-        chunk = int(prog.cfg.scan_chunk)
+        drv.check(prog)
+        drv.warm(prog)
+        win = harness.window(drv, prog, seconds, device)
+        out["window_ms_per_step"] = 1e3 * win["window_s"] / win["steps"]
 
         with harness.spans_of(True) as sp:
-            dt = timed_chunk(prog, steps, True)
+            dt = timed(drv, prog, steps, True, device)
         out["stages"] = {k: 1e3 * v / (1 if k == "chunk" else steps) for k, v in sp.items()}
         out["spans_ms_per_step"] = 1e3 * dt / steps
 
-        ab = {"off": [], "on": []}
-        for r in range(rounds):
-            for on in ((False, True) if r % 2 == 0 else (True, False)):
-                ab["on" if on else "off"].append(1e3 * timed_chunk(prog, chunk, on) / chunk)
-        profiling.clear_spans()
-        out["ab_ms_per_step"] = ab
-        if ab["off"]:
-            out["ab_median_ms"] = {k: statistics.median(v) for k, v in ab.items()}
+        chunk = steps
+        if hasattr(drv, "ab_steps"):
+            chunk = drv.ab_steps(prog)
+            ab = {"off": [], "on": []}
+            for r in range(rounds):
+                for on in ((False, True) if r % 2 == 0 else (True, False)):
+                    ab["on" if on else "off"].append(
+                        1e3 * timed(drv, prog, chunk, on, device) / chunk)
+            profiling.clear_spans()
+            out["ab_ms_per_step"] = ab
+            if ab["off"]:
+                out["ab_median_ms"] = {k: statistics.median(v) for k, v in ab.items()}
+        else:
+            out["skipped"].append("ab_rounds")
 
         # last: on the card a profiled stretch leaves the host's later steps slower
-        events, tr_s = profiled(prog, steps, tmp)
+        events, tr_s = profiled(drv, prog, steps, device, tmp)
         profiling.clear_spans()
         rt = harness.read_trace(events, steps, tr_s)
         st = by_stage(events)
@@ -215,8 +202,8 @@ def run(workload: str, seed: int, seconds: float = 20.0, steps: int = 20, rounds
         out["idle_by_stage_ms"] = {k: 1e3 * v / steps for k, v in st["idle_by_stage"].items()}
         out["profiled_ms_per_step"] = 1e3 * tr_s / steps
         out["busy_ms_per_step"] = 1e3 * rt["busy_s"] / steps
-        out["after_profile_ms_per_step"] = 1e3 * timed_chunk(prog, chunk, False) / chunk
-        prog.free()
+        out["after_profile_ms_per_step"] = 1e3 * timed(drv, prog, chunk, False, device) / chunk
+        drv.free(prog)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out

@@ -89,6 +89,7 @@ def test_run_reads_every_stage_at_a_small_size():
     w = "rgbd_batch.room"
     out = stages.run(w, 2 ** 31 + 7, seconds=0.1, steps=2, rounds=2, device="cpu",
                      overrides=OVERRIDES[w])
+    assert out["skipped"] == []
     assert out["frames"] == OVERRIDES[w]["traffic"]["frames"]
     assert set(out["setup_spans"]) == {"data.prep", "data.wait", "data.octree", "data.pool"}
     assert set(out["setup_spans_sequential"]) == {"data.prep", "data.octree", "data.pool"}
